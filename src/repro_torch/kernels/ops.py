@@ -1,0 +1,63 @@
+"""Kernel dispatch by the input tensor's device.
+
+A CPU tensor takes the plain PyTorch version (``kernels/ref.py``); a CUDA
+tensor takes the hand-written kernel, or the call raises.  There is no
+override and no fallback.  ``launch_counts`` reads the kernels' launch
+counters; ``reset_launch_counts`` sets them to 0.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import quantize as qz
+from repro_torch.kernels import ref
+
+_WRAPPERS = {
+    "flash_attention": fa.flash_attention_cuda,
+    "quantize_int8": qz.quantize_int8_cuda,
+    "dequantize_int8": qz.dequantize_int8_cuda,
+}
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {x.device}")
+
+
+def flash_attention(
+    q, k, v, *, mask_kind="causal", window=0, attn_softcap=0.0, qpos=None, kpos=None,
+):
+    """GQA attention.  qpos/kpos are accepted for API parity with the decode
+    path and ignored: train/prefill sequences are dense and left-aligned."""
+    if _on_card(q):
+        return fa.flash_attention_cuda(q, k, v, mask_kind=mask_kind, window=window,
+                                       attn_softcap=attn_softcap)
+    return ref.flash_attention_ref(q, k, v, mask_kind=mask_kind, window=window,
+                                   attn_softcap=attn_softcap)
+
+
+def quantize_int8(x: torch.Tensor, *, block: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
+    if _on_card(x):
+        return qz.quantize_int8_cuda(x, block=block)
+    return ref.quantize_int8_ref(x, block=block)
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, *, block: int = 256) -> torch.Tensor:
+    if _on_card(q):
+        return qz.dequantize_int8_cuda(q, scale, block=block)
+    return ref.dequantize_int8_ref(q, scale, block=block)
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: w.launches for name, w in _WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for w in _WRAPPERS.values():
+        w.launches = 0
