@@ -16,12 +16,24 @@ Phases, each of which raises on failure:
                 bytes, migrate_job to site B, restore there, prefill and
                 decode again;
   5. checks  -- the slice's outputs against the plain path on the CPU;
-  6. profile -- device busy share and top kernels of prefill and decode.
+  6. fleet   -- the orchestration core, three paths through the port's
+                entry points with the K4 decide kernel on every tick, each
+                with the launch counters set to 0 just before it and read
+                just after: a paper-table6 week (ClusterSimulator), the
+                100-site x 10,000-job fleet-compiled week, and the
+                1,000-run batched sweep (run_cells_batched).  Their
+                summaries must equal the same runs with device="cpu" (run
+                first; they also supply real decide batches for the K4
+                check in phase 3) and the fleet week the recorded
+                benchmarks/BENCH_quick.json row;
+  7. profile -- device busy share and top kernels of prefill and decode,
+                and of a profiled rerun of each fleet path.
 Then one JSON line of per-kernel numbers, and last the ok line.  Nothing
 runs on the CPU in place of the card: without a card the script exits 1.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -29,7 +41,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -40,11 +52,17 @@ from repro_torch.checkpoint import serializer as ser  # noqa: E402
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import flatten_with_paths, params_from_numpy, params_to_numpy  # noqa: E402
+import numpy as np  # noqa: E402
+
 from repro_torch.core import feasibility  # noqa: E402
+from repro_torch.core import policy_kernels as pk  # noqa: E402
+from repro_torch.core.simulator import ClusterSimulator  # noqa: E402
+from repro_torch.core.sweep import TIMING_KEYS, SweepSpec, run_cells, run_cells_batched  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLMDataset  # noqa: E402
 from repro_torch.core.migration import migrate_job  # noqa: E402
 from repro_torch.device import resolve  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.decide import decide_dest_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.quantize import dequantize_int8_cuda, quantize_int8_cuda  # noqa: E402
 from repro_torch.launch.serve import greedy_decode  # noqa: E402
@@ -94,9 +112,32 @@ KERNELS = {
     "dequantize_int8": dict(
         route="cuda", source="src/repro_torch/csrc/quantize.cu",
         replaces="src/repro/kernels/quantize.py:67"),
+    "decide_dest": dict(
+        route="cuda", source="src/repro_torch/csrc/decide.cu",
+        replaces="src/repro/core/policy_kernels.py:609"),
 }
-# H100 SXM data sheet: HBM 3.35 TB/s; float32 outside the tensor cores 67 TFLOP/s.
-HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+# H100 SXM data sheet: HBM 3.35 TB/s; float32 outside the tensor cores 67 TFLOP/s;
+# float64 outside the tensor cores 34 TFLOP/s.
+HBM_BPS, F32_FLOPS, F64_FLOPS = 3.35e12, 67e12, 34e12
+
+# The orchestration slice, at the sizes of the repo's perf gate
+# (benchmarks/run.py, copied here: the script imports nothing of benchmarks/).
+FLEET_COMPILED_OVERRIDES = dict(n_sites=100, n_jobs=10000, arrival_skew=(1.0,) * 100)
+SWEEP_BATCHED_SPEC = dict(
+    scenarios=("paper-table6", "forecastable-brownouts"),
+    policies=("feasibility-aware",), seeds=tuple(range(500)),
+    overrides=dict(n_jobs=6, days=1, orch_dt_s=1800.0))
+BENCH_QUICK = os.path.join(HERE, "benchmarks", "BENCH_quick.json")
+# fleet-compiled digits the week must reproduce, rounded as benchmarks/run.py rounds them
+FLEET_DIGITS = (("grid_kwh", 1), ("renewable_kwh", 1), ("grid_gco2", 1), ("grid_cost", 2),
+                ("migrations", None), ("completed", None), ("rejected_actions", None))
+# K4 at the upper fleet shape: 131,072 jobs x 100 sites (104 padded), one cell
+UPPER_JOBS, UPPER_SITES = 131072, 100
+# float64 operations per (job, site) element of the decide, comparisons
+# included (the deterministic gate): tt 1, t_cost 2, energy 2, class C 1,
+# time 2, avoided 3, benefit 5, validity 2, argbest 2
+DECIDE_OPS = 20
+STOCH_PARAMS = dict(eps=0.05, forecast_sigma_s=900.0)
 
 
 def log(msg: str) -> None:
@@ -132,8 +173,8 @@ def time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
+def bound(nbytes: float, flops: float, peak_flops: float = F32_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -198,6 +239,235 @@ def run_slice(cfg, params, prompts, workdir, *, max_new, device,
     return SliceResult(logits_a, tokens_a, logits_b, tokens_b, params_b, mgr, nbytes, verdict,
                        report, prefill_a, decode_a, save_s, migrate_s, restore_s, prefill_b,
                        decode_b)
+
+
+# ---------------------------------------------------------------------------
+# The orchestration slice (paths also run on the CPU by the rehearsal)
+# ---------------------------------------------------------------------------
+
+
+def strip_timing(summary: dict) -> dict:
+    return {k: v for k, v in summary.items() if k not in TIMING_KEYS}
+
+
+def run_table6(device):
+    return ClusterSimulator.from_scenario("paper-table6", "feasibility-aware",
+                                          device=device).run()
+
+
+def run_fleet_week(device):
+    return ClusterSimulator.from_scenario(
+        "forecastable-brownouts", "feasibility-aware",
+        overrides=FLEET_COMPILED_OVERRIDES, device=device).run()
+
+
+def run_sweep_batched(device, seeds=SWEEP_BATCHED_SPEC["seeds"]):
+    spec = SweepSpec(**{**SWEEP_BATCHED_SPEC, "seeds": tuple(seeds)})
+    return run_cells_batched(spec.cells(), device=device)
+
+
+FLEET_PATHS = (("paper-table6 week", run_table6),
+               ("fleet-compiled week", run_fleet_week),
+               ("batched sweep", run_sweep_batched))
+
+
+def path_stats(out) -> dict:
+    """Wall, ticks and decide wall of one path's result (a SimResult, or a
+    SweepResult whose runs kept their results)."""
+    runs = [r.result for r in out.runs] if hasattr(out, "runs") else [out]
+    wall = out.wall_s if hasattr(out, "runs") else out.wall_time_s
+    ticks = sum(r.ticks for r in runs)
+    return dict(wall_s=wall, ticks=ticks, ticks_per_s=ticks / wall, runs=len(runs),
+                decide_s=sum(r.decide_s for r in runs),
+                decide_first_s=sum(r.decide_first_s for r in runs))
+
+
+def same_output(name: str, got, want) -> None:
+    """A card path's output against the same path on the CPU, timing
+    keys aside."""
+    if hasattr(got, "runs"):
+        same = got.deterministic_summaries() == want.deterministic_summaries()
+    else:
+        same = strip_timing(got.summary()) == strip_timing(want.summary())
+    if not same:
+        raise RuntimeError(f"{name} on the card differs from the same run with device='cpu'")
+
+
+def check_fleet_digits(r) -> str:
+    with open(BENCH_QUICK) as f:
+        row = json.load(f)["policies"]["fleet-compiled"]
+    got = {k: (round(getattr(r, k), nd) if nd is not None else getattr(r, k))
+           for k, nd in FLEET_DIGITS}
+    want = {k: row[k] for k, _ in FLEET_DIGITS}
+    if got != want:
+        raise RuntimeError(f"fleet-compiled week {got} differs from BENCH_quick.json {want}")
+    return " / ".join(str(got[k]) for k, _ in FLEET_DIGITS)
+
+
+@contextlib.contextmanager
+def largest_batch(into: dict, key: str):
+    """While the block runs, keep the largest padded batch the decide path
+    scores, among those the one where most rows move, with its params, as
+    ``into[key]``: real ticks for the K4 checks, taken from the CPU runs."""
+    scorer = pk.score_batch
+    best = []
+
+    def recording(batch, params, device=None):
+        dest = scorer(batch, params, device)
+        rank = (batch.bw.size, int((dest >= 0).sum()))
+        if not best or rank > best[0]:
+            best[:] = [rank]
+            into[key] = (batch, params)
+        return dest
+
+    pk.score_batch = recording
+    try:
+        yield
+    finally:
+        pk.score_batch = scorer
+
+
+def hand_batch():
+    """Cells built by hand, with the destination each row must get:
+    exact ties (equal benefit: the lower tt wins at a higher sid; equal
+    benefit and tt: the lowest sid), a dead link row, a class-C row, a
+    site without a free slot, a dark fleet, every slot full."""
+    H, G = 3600.0, 1e9
+
+    def cell(W, bw_rows, free, sizes=None):
+        k, n = len(bw_rows), len(W)
+        return pk.StateRows(
+            sizes=np.array(sizes or [5 * G] * k), t_loads=np.full(k, 10.3),
+            rem=np.full(k, 8 * H), cur_green=np.zeros(k), load_src=np.full(k, 0.5),
+            s_i=np.zeros(k, dtype=np.int64), bw=np.array(bw_rows, dtype=np.float64),
+            W=np.array(W), bq_load=np.full(n, 0.25), free_slots=np.array(free, dtype=np.int64))
+
+    cells = [
+        (cell([0, 6 * H, 6 * H, 6 * H],
+              [[0, 1e9, 2e9, 1e9], [0, 2e9, 2e9, 2e9], [0, 0, 0, 0], [0, 1e9, 1e9, 1e9]],
+              [1, 1, 1, 1], sizes=[5 * G, 5 * G, 5 * G, 40 * G]), [2, 1, -1, -1]),
+        (cell([0, 7 * H, 6 * H], [[0, 2e9, 2e9]], [1, 0, 1]), [2]),
+        (cell([0, 0, 0], [[0, 2e9, 2e9]], [1, 1, 1]), [-1]),
+        (cell([0, 6 * H, 7 * H], [[0, 2e9, 2e9]], [0, -1, 0]), [2]),
+    ]
+    return pk.build_batch([c for c, _ in cells]), [e for _, e in cells]
+
+
+def upper_batch(seed: int = 0, jobs: int = UPPER_JOBS, n: int = UPPER_SITES):
+    """One seeded fleet cell at the upper end of the fleet regime.  Site
+    windows, queue loads and link rates come from small sets, so exact
+    ties in benefit and in tt are common; every site state is present
+    (dark, full, dead links)."""
+    rng = np.random.default_rng(seed)
+    W = rng.choice([0.0, 0.0, 1800.0, 7200.0, 14400.0, 21600.0], n)
+    bq = rng.choice([0.0, 0.25, 0.5, 1.0], n)
+    s_i = rng.integers(0, n, jobs)
+    rows = pk.StateRows(
+        sizes=rng.choice([1e9, 2e9, 5e9, 20e9, 100e9], jobs) * rng.choice([1.0, 1.5], jobs),
+        t_loads=np.full(jobs, 10.3), rem=rng.uniform(600.0, 86400.0, jobs),
+        cur_green=W[s_i], load_src=bq[s_i], s_i=s_i,
+        bw=rng.choice([0.0, 1e9, 2.5e9, 10e9], (jobs, n)), W=W, bq_load=bq,
+        free_slots=rng.choice([-1, 0, 1, 2], n))
+    return pk.build_batch([rows])
+
+
+def check_decide(dev, captured: dict, *, upper_jobs: int = UPPER_JOBS) -> dict:
+    """K4 on the card against its plain version on the card and against
+    the numpy pass _score_numpy on the host: destinations exactly equal,
+    on real ticks, the hand-built cells and the upper fleet batch, under
+    the policy's params, the stochastic gate and min_benefit 0.  Then the
+    kernel's time at the upper shape, beside its plain version and bound."""
+    hand, expect = hand_batch()
+    upper = upper_batch(jobs=upper_jobs)
+    base = captured["paper-table6 week"][1]
+    batches = [(name, captured[name][0]) for name, _ in FLEET_PATHS]
+    batches += [("hand-built", hand), ("synthetic upper fleet", upper)]
+    param_sets = (("policy", base), ("stochastic", replace(base, **STOCH_PARAMS)),
+                  ("min_benefit 0", replace(base, min_benefit_s=0.0)))
+    for name, batch in batches:
+        jobs, sites = (torch.from_numpy(a).to(dev) for a in pk.pack_batch(batch))
+        bw = torch.from_numpy(batch.bw).to(dev)
+        moved = []
+        for pname, params in param_sets:
+            sc = pk.kernel_scalars(params)
+            got = decide_dest_cuda(jobs, sites, bw, **sc)
+            plain = ref.decide_dest_ref(jobs, sites, bw, **sc)
+            host = pk._score_numpy(batch, params)
+            got_h = got.cpu().numpy()
+            if not torch.equal(got, plain) or not np.array_equal(got_h, host):
+                raise RuntimeError(
+                    f"decide_dest on {name} ({pname}) differs: {int((got != plain).sum())} rows "
+                    f"from the plain version, {int((got_h != host).sum())} from _score_numpy")
+            if name == "hand-built":
+                for b, want in enumerate(expect):
+                    if list(got_h[b, :len(want)]) != want:
+                        raise RuntimeError(f"hand-built cell {b}: {got_h[b, :len(want)]} != {want}")
+            moved.append(int((got_h >= 0).sum()))
+        B, K, S = batch.bw.shape
+        log(f"[kernels] decide_dest {name} (B {B}, K {K}, S {S}): equal to the plain version "
+            f"and _score_numpy under {len(param_sets)} param sets; rows that move {moved}")
+
+    sc = pk.kernel_scalars(base)
+    fleet = captured["fleet-compiled week"][0]
+    ftensors = [torch.from_numpy(a).to(dev) for a in (*pk.pack_batch(fleet), fleet.bw)]
+    tick_ms = time_ms(lambda: decide_dest_cuda(*ftensors, **sc))
+    log(f"[kernels] decide_dest at the fleet tick shape {tuple(fleet.bw.shape)}: {tick_ms:.4f} ms")
+    jobs, sites, bw = (torch.from_numpy(a).to(dev) for a in (*pk.pack_batch(upper), upper.bw))
+    ms = time_ms(lambda: decide_dest_cuda(jobs, sites, bw, **sc))
+    plain = time_ms(lambda: ref.decide_dest_ref(jobs, sites, bw, **sc))
+    B, K, S = bw.shape
+    nbytes = 8 * (jobs.numel() + sites.numel() + bw.numel() + B * K)
+    b_ms, b_by = bound(nbytes, DECIDE_OPS * B * K * S, F64_FLOPS)
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def run_fleet_paths(dev, cpu: dict) -> dict:
+    """The three orchestration paths on ``dev``, each with the launch
+    counters set to 0 just before it and read just after; outputs held
+    against the CPU runs.  Returns each path's K4 launches."""
+    launches = {}
+    for name, fn in FLEET_PATHS:
+        ops.reset_launch_counts()
+        out = fn(dev)
+        counts = ops.launch_counts()
+        if counts["decide_dest"] <= 0 or any(v for k, v in counts.items() if k != "decide_dest"):
+            raise RuntimeError(f"{name}: launch counts {counts}, expected K4 only and > 0")
+        same_output(name, out, cpu[name])
+        st = path_stats(out)
+        extra = f"; fleet digits {check_fleet_digits(out)} as recorded" if name.startswith("fleet") else ""
+        log(f"[fleet] {name}: {st['runs']} run(s), wall {st['wall_s']:.3f} s, {st['ticks']} ticks "
+            f"({st['ticks_per_s']:.0f} ticks/s), decide_s {st['decide_s']:.4f}, decide_first_s "
+            f"{st['decide_first_s']:.4f}, K4 launches {counts['decide_dest']}; equal to "
+            f"device='cpu'{extra}")
+        launches[name] = counts["decide_dest"]
+    return launches
+
+
+def run_cpu_paths() -> tuple:
+    """The three paths with device='cpu' (the plain K4), recording the
+    largest decide batch of each for the kernel checks."""
+    cpu, captured = {}, {}
+    for name, fn in FLEET_PATHS:
+        t0 = time.perf_counter()
+        with largest_batch(captured, name):
+            cpu[name] = fn("cpu")
+        st = path_stats(cpu[name])
+        log(f"[fleet] {name} with device='cpu': {time.perf_counter() - t0:.1f} s, decide_s "
+            f"{st['decide_s']:.4f} over {st['ticks']} ticks; largest decide batch "
+            f"{captured[name][0].bw.shape}")
+    return cpu, captured
+
+
+def check_spawn_pool(dev) -> None:
+    """run_cells with two workers on the card spawns them (a forked child
+    cannot use CUDA once the parent has): equal to the batched runner."""
+    cells = SweepSpec(**{**SWEEP_BATCHED_SPEC, "seeds": (0, 1)}).cells()
+    pool = run_cells(cells, workers=2, device=dev)
+    if pool.deterministic_summaries() != run_cells_batched(cells, device=dev).deterministic_summaries():
+        raise RuntimeError("run_cells(workers=2) on the card differs from run_cells_batched")
+    log(f"[checks] run_cells with 2 spawned workers on the card equals run_cells_batched "
+        f"({len(pool.runs)} runs)")
 
 
 # ---------------------------------------------------------------------------
@@ -364,6 +634,83 @@ def _device_us(evt) -> float:
     return float(getattr(evt, "self_device_time_total", getattr(evt, "self_cuda_time_total", 0.0)))
 
 
+def _profiled(fn):
+    """Run ``fn`` under torch.profiler; returns (its output, wall us, the
+    device-side events with time: kernels and copies)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    return out, wall_us, events
+
+
+def phase_profile_fleet(dev) -> None:
+    """Device busy share of each orchestration path, from a profiled rerun
+    (its launches are not counted): over the run's wall, and over the
+    decide calls, the decide-heavy stretch of the run."""
+    for name, fn in FLEET_PATHS:
+        out, wall_us, events = _profiled(lambda: fn(dev))
+        if not events:
+            log(f"[profile] {name}: device time not measured (the profiler saw no device events)")
+            continue
+        busy = sum(_device_us(e) for e in events)
+        st = path_stats(out)
+        dec_us = (st["decide_s"] + st["decide_first_s"]) * 1e6
+        log(f"[profile] {name} (profiled rerun): wall {wall_us / 1e6:.3f} s, decide "
+            f"{dec_us / 1e6:.3f} s, device busy {busy / 1e3:.1f} ms = {100 * busy / wall_us:.2f}% "
+            f"of wall, {100 * busy / dec_us:.2f}% of the decide calls")
+        for e in sorted(events, key=_device_us, reverse=True)[:4]:
+            log(f"[profile]   {_device_us(e):9.0f} us  x{e.count:<6d} {e.key[:90]}")
+
+
+# The decide path's host stages, as cProfile names them: (file suffix, function).
+DECIDE_STAGES = (
+    ("orchestrator.py", "decide"), ("orchestrator.py", "_prep"),
+    ("orchestrator.py", "_fault_bw"), ("orchestrator.py", "_commit"),
+    ("policy_kernels.py", "rows_from_state"), ("policy_kernels.py", "build_batch"),
+    ("policy_kernels.py", "score_batch"), ("policy_kernels.py", "pack_batch"),
+    ("device.py", "resolve"), ("ops.py", "decide_dest"), ("decide.py", "decide_dest_cuda"),
+    ("~", "<built-in method torch.from_numpy>"),
+    ("~", "<method 'to' of 'torch._C.TensorBase' objects>"),
+    ("~", "<method 'cpu' of 'torch._C.TensorBase' objects>"),
+)
+
+
+def phase_host_split(dev) -> None:
+    """Where the host time of a decide tick goes on the card: a cProfile
+    rerun of the two simulator weeks, cumulative time of each stage of the
+    decide path.  cProfile slows Python code more than native code, so the
+    shares, not the seconds, are what to read."""
+    import cProfile
+    import pstats
+
+    for name, fn in FLEET_PATHS[:2]:
+        prof = cProfile.Profile()
+        prof.enable()
+        fn(dev)
+        prof.disable()
+        stats = pstats.Stats(prof).stats
+        got = {}
+        for (path, _line, func), (_cc, ncalls, _tt, cum, _callers) in stats.items():
+            for suffix, want in DECIDE_STAGES:
+                if path.endswith(suffix) and func.startswith(want):
+                    n0, c0 = got.get(want, (0, 0.0))
+                    got[want] = (n0 + ncalls, c0 + cum)
+        total = got.get("decide", (0, 0.0))[1]
+        log(f"[profile] {name} host split of the decide calls (cProfile rerun): decide "
+            f"{total:.3f} s")
+        for _, want in DECIDE_STAGES[1:]:
+            n, cum = got.get(want, (0, 0.0))
+            log(f"[profile]   {cum:8.3f} s {100 * cum / max(total, 1e-12):5.1f}%  x{n:<6d} {want}")
+
+
 def phase_profile(cfg, params, prompts, dev) -> None:
     """Device busy share and top kernels for one prefill and for 16 decode
     steps, from torch.profiler (CUPTI).  Runs after the slice: its launches
@@ -415,6 +762,8 @@ def main() -> int:
     leaves = [x for _, x in flatten_with_paths(params)]
     stats = {"flash_attention": check_flash(dev, gen)}
     stats["quantize_int8"], stats["dequantize_int8"] = check_quantize(dev, gen, leaves)
+    cpu, captured = run_cpu_paths()
+    stats["decide_dest"] = check_decide(dev, captured)
     for name, st in stats.items():
         lib = "null" if st["library_ms"] is None else f"{st['library_ms']:.4f}"
         log(f"[kernels] {name}: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
@@ -427,7 +776,7 @@ def main() -> int:
         res = run_slice(cfg, params, prompts, work, max_new=NEW, device=dev)
         launches = ops.launch_counts()
         expect = {"flash_attention": 2 * cfg.num_layers, "quantize_int8": len(leaves),
-                  "dequantize_int8": len(leaves)}
+                  "dequantize_int8": len(leaves), "decide_dest": 0}
         if launches != expect:
             raise RuntimeError(f"launch counts of the slice {launches}, expected {expect}")
         log(f"[slice] micro-lm, {n_params} params, {BATCH} requests x {PROMPT} prompt + {NEW} "
@@ -443,7 +792,12 @@ def main() -> int:
             f"{float(v.t_cost_s):.4f} s, feasible {bool(v.feasible)}; migrate {res.migrate_s:.3f} s; "
             f"restore {res.restore_s:.3f} s")
         check_slice(res, cfg, params, prompts, dev)
+    fleet_launches = run_fleet_paths(dev, cpu)
+    launches["decide_dest"] = sum(fleet_launches.values())
+    check_spawn_pool(dev)
     phase_profile(cfg, params, prompts, dev)
+    phase_profile_fleet(dev)
+    phase_host_split(dev)
 
     rows = []
     for name, st in stats.items():

@@ -110,3 +110,26 @@ def evaluate(
     energy_ok = t_be < window_s
     feasible = np.logical_and(np.logical_and(time_ok, energy_ok), cls != 2)
     return FeasibilityVerdict(feasible, time_ok, energy_ok, t_transfer, t_cost, t_be, cls)
+
+
+def stochastic_feasible(
+    size_bytes: ArrayLike,
+    bandwidth_bps: ArrayLike,
+    window_forecast_s: ArrayLike,
+    window_sigma_s: ArrayLike,
+    *,
+    eps: float = 0.05,
+    alpha: float = ALPHA,
+    t_load_s: float = T_LOAD_S,
+    t_downtime_s: float = T_DOWNTIME_S,
+) -> np.ndarray:
+    """P[T_mig + T_load + T_dt < α·T̃_d | T̂_d] ≥ 1 − ε with a Gaussian
+    forecast-error model T̃ ~ N(T̂, σ²) (§VI.H): equivalent to checking the
+    deterministic condition against the lower ε-quantile of the window."""
+    import statistics
+
+    t_cost = migration_cost_s(size_bytes, bandwidth_bps, t_load_s, t_downtime_s)
+    ppf = statistics.NormalDist().inv_cdf(eps)
+    window_lo = (np.asarray(window_forecast_s, dtype=np.float64)
+                 + ppf * np.asarray(window_sigma_s, dtype=np.float64))
+    return t_cost < alpha * np.maximum(window_lo, 0.0)

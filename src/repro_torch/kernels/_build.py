@@ -24,15 +24,18 @@ from typing import List
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parents[1] / "build"
-SOURCES = ("flash_attention.cu", "quantize.cu")
+SOURCES = ("flash_attention.cu", "quantize.cu", "decide.cu")
 # sm_90a: Hopper with its arch-specific instructions (wgmma, setmaxnreg).
-# Never --use_fast_math: the quantize kernel relies on IEEE division.
+# Never --use_fast_math: the quantize and decide kernels rely on IEEE
+# division (decide.cu also writes every float64 op as an _rn intrinsic, so
+# no --fmad flag is needed for it).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
 _c_ll = ctypes.c_longlong
+_c_dbl = ctypes.c_double
 SIGNATURES = {
     # q, k, v, o, b, s, t, nh, nkv, hd, mask, window, softcap, scale, device, stream
     "repro_flash_attention_fwd_f32": [_c_ptr] * 4 + [_c_int] * 8
@@ -41,6 +44,11 @@ SIGNATURES = {
     "repro_quantize_int8_f32": [_c_ptr] * 3 + [_c_ll, _c_int, _c_ptr],
     # q, scale, x, n, device, stream
     "repro_dequantize_int8_f32": [_c_ptr] * 3 + [_c_ll, _c_int, _c_ptr],
+    # jobs, sites, bw, dest, B, K, S, alpha, gamma, betaqp, queue_penalty_s,
+    # min_benefit_s, ppf_sigma, use_stoch, energy_ratio, t_downtime_s,
+    # class_c_s, device, stream
+    "repro_decide_dest_f64": [_c_ptr] * 4 + [_c_ll] * 3 + [_c_dbl] * 6 + [_c_int]
+    + [_c_dbl] * 3 + [_c_int, _c_ptr],
 }
 
 

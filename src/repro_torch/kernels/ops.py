@@ -11,6 +11,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels import decide as dc
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import quantize as qz
 from repro_torch.kernels import ref
@@ -19,6 +20,7 @@ _WRAPPERS = {
     "flash_attention": fa.flash_attention_cuda,
     "quantize_int8": qz.quantize_int8_cuda,
     "dequantize_int8": qz.dequantize_int8_cuda,
+    "decide_dest": dc.decide_dest_cuda,
 }
 
 
@@ -52,6 +54,17 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, *, block: int = 256) -
     if _on_card(q):
         return qz.dequantize_int8_cuda(q, scale, block=block)
     return ref.dequantize_int8_ref(q, scale, block=block)
+
+
+def decide_dest(jobs: torch.Tensor, sites: torch.Tensor, bw: torch.Tensor,
+                **scalars) -> torch.Tensor:
+    """The fused Algorithm-1 decide (K4) in float64: (B, K) int64
+    destinations, -1 = stay.  ``scalars`` are the keyword arguments of
+    ``decide.decide_dest_cuda`` (``core/policy_kernels.kernel_scalars``)."""
+    if _on_card(jobs):
+        return dc.decide_dest_cuda(jobs, sites, bw, **scalars)
+    dc.check_decide_inputs(jobs, sites, bw)
+    return ref.decide_dest_ref(jobs, sites, bw, **scalars)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -68,3 +68,44 @@ def quantize_int8_ref(x: torch.Tensor, block: int = 256) -> Tuple[torch.Tensor, 
 def dequantize_int8_ref(q: torch.Tensor, scale: torch.Tensor, block: int = 256) -> torch.Tensor:
     n = q.shape[0]
     return (q.reshape(n // block, block).float() * scale[:, None]).reshape(n)
+
+
+def decide_dest_ref(
+    jobs: torch.Tensor,   # (B, K, 6) float64: size, t_load, rem, cur_green, load_src, s_i
+    sites: torch.Tensor,  # (B, S, 3) float64: W, bq_load, free_slots
+    bw: torch.Tensor,     # (B, K, S) float64 bits/s
+    *,
+    alpha: float, gamma: float, betaqp: float, queue_penalty_s: float,
+    min_benefit_s: float, ppf_sigma: float, use_stoch: bool,
+    energy_ratio: float, t_downtime_s: float, class_c_s: float,
+) -> torch.Tensor:
+    """The fused Algorithm-1 decide: ``core/policy_kernels._score_numpy``
+    op for op in float64, bit-identical to it.  Every product and sum is
+    its own elementwise op (no contraction); division is tensor by
+    tensor (IEEE on the card too), so bw 0 gives tt = inf.  Returns
+    (B, K) int64 argbest destinations, -1 where none is valid."""
+    size, t_load, rem, cur_green, load_src, s_i = (jobs[..., c, None] for c in range(6))
+    W, bq_load, free_slots = (sites[:, None, :, c] for c in range(3))
+    zero = torch.zeros((), dtype=torch.float64, device=jobs.device)
+    tt = (8.0 * size) / bw
+    t_cost = tt + t_load + t_downtime_s
+    energy_ok = energy_ratio * tt < W
+    not_c = tt < class_c_s
+    if use_stoch:
+        time_ok = t_cost < alpha * torch.maximum(W + ppf_sigma, zero)
+    else:
+        time_ok = t_cost < alpha * W
+    ok = time_ok & energy_ok & not_c
+    avoided = torch.maximum(zero, torch.minimum(W, rem) - torch.minimum(cur_green, rem))
+    benefit = gamma * avoided - betaqp * (bq_load - load_src)
+    benefit = benefit + torch.where(free_slots <= 0, torch.full_like(free_slots, -queue_penalty_s),
+                                    torch.zeros_like(free_slots))
+    sid = torch.arange(bw.shape[2], dtype=torch.float64, device=jobs.device)
+    valid = ok & (sid != s_i) & (benefit > torch.maximum(t_cost, torch.full_like(t_cost, min_benefit_s)))
+    b = torch.where(valid, benefit, -torch.inf)
+    mb = b.amax(dim=2, keepdim=True)
+    tie = valid & (b == mb)
+    ttm = torch.where(tie, tt, torch.inf)
+    tie = tie & (ttm == ttm.amin(dim=2, keepdim=True))
+    first = tie.to(torch.uint8).argmax(dim=2)
+    return torch.where(torch.isfinite(mb[..., 0]), first, -1)

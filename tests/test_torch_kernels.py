@@ -97,7 +97,8 @@ def test_ops_on_cpu_take_plain_path_and_count_nothing():
     x = torch.from_numpy(_quant_cases()["rows-3"])
     qv, sv = ops.quantize_int8(x)
     ops.dequantize_int8(qv, sv)
-    assert ops.launch_counts() == {"flash_attention": 0, "quantize_int8": 0, "dequantize_int8": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "quantize_int8": 0, "dequantize_int8": 0,
+                                   "decide_dest": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -109,4 +110,5 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         quantize_int8_cuda(torch.zeros(256))
     with pytest.raises(ValueError):
         dequantize_int8_cuda(torch.zeros(256, dtype=torch.int8), torch.ones(1))
-    assert ops.launch_counts() == {"flash_attention": 0, "quantize_int8": 0, "dequantize_int8": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "quantize_int8": 0, "dequantize_int8": 0,
+                                   "decide_dest": 0}

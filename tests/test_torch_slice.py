@@ -54,7 +54,8 @@ def test_serving_slice_matches_reference(tmp_path):
     ops.reset_launch_counts()
     res = chip_smoke.run_slice(cfg, params, torch.from_numpy(prompts).long(), str(tmp_path / "torch"),
                                max_new=NEW, device="cpu")
-    assert ops.launch_counts() == {"flash_attention": 0, "quantize_int8": 0, "dequantize_int8": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "quantize_int8": 0, "dequantize_int8": 0,
+                                   "decide_dest": 0}
 
     np.testing.assert_allclose(res.logits_a.numpy(), np.asarray(jlogits_a), atol=TOL, rtol=TOL)
     np.testing.assert_array_equal(res.tokens_a.numpy(), np.asarray(jtokens_a))
