@@ -5,16 +5,20 @@
 
 Phases, each of which raises on failure:
   1. device  -- a CUDA card is required; print its name and power limit;
-  2. build   -- compile the hand-written kernels from src/repro_torch/csrc;
+  2. build   -- compile the hand-written kernels from src/repro_torch/csrc
+                and print each one's registers and spills (ptxas -v);
   3. kernels -- hold each kernel against its plain PyTorch version on the
-                card, at the serving slice's shapes and more, and time both;
+                card, at the serving slice's shapes and more (K1 in float32
+                and in bf16), and time both beside a PyTorch call where one
+                computes the same function, and beside the kernel's bound;
   4. slice   -- the serving slice at micro-lm's full width, through the
                 port's own entry points, with the launch counters set to 0
                 just before it and read just after:
                 site A prefill (Model.forward) and greedy decode, an int8
                 GRNCKPT1 checkpoint, the feasibility gate on the measured
                 bytes, migrate_job to site B, restore there, prefill and
-                decode again;
+                decode again; then micro-lm's prefill with its weights in
+                bf16 (K1's bf16 kernel), counted the same way;
   5. checks  -- the slice's outputs against the plain path on the CPU;
   6. fleet   -- the orchestration core, three paths through the port's
                 entry points with the K4 decide kernel on every tick, each
@@ -36,6 +40,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -51,7 +56,8 @@ import torch  # noqa: E402
 from repro_torch.checkpoint import serializer as ser  # noqa: E402
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.convert import flatten_with_paths, params_from_numpy, params_to_numpy  # noqa: E402
+from repro_torch.convert import (  # noqa: E402
+    flatten_with_paths, params_from_numpy, params_to_numpy, tree_map)
 import numpy as np  # noqa: E402
 
 from repro_torch.core import feasibility  # noqa: E402
@@ -72,13 +78,24 @@ from repro_torch.models.model import build_model  # noqa: E402
 # new tokens each.
 BATCH, PROMPT, NEW = 8, 512, 64
 BANDWIDTH_BPS, WINDOW_S = 10e9, 2.5 * 3600
-# Kernel vs plain version, both float32 on the card: they sum the hd-term
-# dot products and the softmax-weighted sums over keys in different orders
-# (each ~1e-7 relative) and expf differs by <= 2 ulp, so 1e-5 abs and rel.
+# Kernel vs plain version, both float32 on the card: the kernel's 3xTF32
+# products carry ~2^-22 relative error each (the plain version's IEEE
+# float32 ~2^-24) and the tensor cores truncate as they accumulate; both
+# sum the hd-term dot products and the softmax-weighted sums over keys in
+# different orders (each ~1e-7 relative), and the kernel's 2^x differs from
+# exp by a few ulp, so 1e-5 abs and rel.
 FLASH_TOL = 1e-5
+# bf16 kernel vs the bf16 plain version: tests/test_kernels.py's bf16 SWEEP
+# tolerance (the plain version rounds scores to bf16, the kernel keeps them
+# in float32; both round p and the output to bf16).
+FLASH_BF16_TOL = 2e-2
 # Port on the card vs the plain path on the CPU, whole model: float32
 # matmuls on both sides in different summation orders over 8 layers.
 MODEL_TOL = 1e-4
+# bf16 prefill, card vs the CPU plain path, whole model: bf16 weights and
+# activations on both sides, rounded in different places (a bf16 ulp at
+# the logits' size, ~3, is 1.6e-2): the repo's bf16 tolerance.
+MODEL_BF16_TOL = 2e-2
 # Prefill vs step-by-step decode, the JAX package's own tolerance
 # (tests/test_models.py::test_prefill_decode_equivalence).
 DECODE_TOL = 2e-4
@@ -99,11 +116,24 @@ FLASH_CASES = [
     (1, 200, 200, 4, 2, 32, "causal", 0, 0.0),
     (2, 77, 77, 4, 2, 16, "window", 16, 0.0),
     (1, 100, 300, 2, 1, 128, "full", 0, 0.0),
+    (2, 77, 77, 4, 2, 256, "causal", 0, 0.0),  # hd 256: Q from shared memory
+]
+# bf16: the two bf16 rows of tests/test_kernels.py::SWEEP, the slice's
+# shape, and ragged shapes (hd 16 and 256 included).
+FLASH_BF16_CASES = [
+    (2, 256, 256, 4, 4, 128, "causal", 0, 0.0),
+    (2, 512, 512, 6, 6, 64, "window", 256, 30.0),
+    (BATCH, PROMPT, PROMPT, 6, 6, 64, "causal", 0, 0.0),
+    (2, 77, 77, 4, 2, 16, "window", 16, 0.0),
+    (1, 100, 300, 2, 1, 256, "full", 0, 0.0),
 ]
 RAGGED_GROUPS = (1, 3, 100, 1001)
 
 KERNELS = {
     "flash_attention": dict(
+        route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:124"),
+    "flash_attention_bf16": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:124"),
     "quantize_int8": dict(
@@ -116,9 +146,13 @@ KERNELS = {
         route="cuda", source="src/repro_torch/csrc/decide.cu",
         replaces="src/repro/core/policy_kernels.py:609"),
 }
-# H100 SXM data sheet: HBM 3.35 TB/s; float32 outside the tensor cores 67 TFLOP/s;
-# float64 outside the tensor cores 34 TFLOP/s.
+# H100 SXM data sheet (NVIDIA spec): HBM 3.35 TB/s; float32 outside the
+# tensor cores 67 TFLOP/s; float64 outside the tensor cores 34 TFLOP/s;
+# dense tensor cores 495 TFLOP/s TF32 and 989 TFLOP/s bf16.
 HBM_BPS, F32_FLOPS, F64_FLOPS = 3.35e12, 67e12, 34e12
+TF32_FLOPS, BF16_FLOPS = 495e12, 989e12
+# K1 float32 does each product as three TF32 products (3xTF32).
+TF32_SPLIT = 3
 
 # The orchestration slice, at the sizes of the repo's perf gate
 # (benchmarks/run.py, copied here: the script imports nothing of benchmarks/).
@@ -133,6 +167,8 @@ FLEET_DIGITS = (("grid_kwh", 1), ("renewable_kwh", 1), ("grid_gco2", 1), ("grid_
                 ("migrations", None), ("completed", None), ("rejected_actions", None))
 # K4 at the upper fleet shape: 131,072 jobs x 100 sites (104 padded), one cell
 UPPER_JOBS, UPPER_SITES = 131072, 100
+# A cell of more sites than K4 stages at a time (128): 1,024 jobs x 300 sites
+WIDE_JOBS, WIDE_SITES = 1024, 300
 # float64 operations per (job, site) element of the decide, comparisons
 # included (the deterministic gate): tt 1, t_cost 2, energy 2, class C 1,
 # time 2, avoided 3, benefit 5, validity 2, argbest 2
@@ -239,6 +275,20 @@ def run_slice(cfg, params, prompts, workdir, *, max_new, device,
     return SliceResult(logits_a, tokens_a, logits_b, tokens_b, params_b, mgr, nbytes, verdict,
                        report, prefill_a, decode_a, save_s, migrate_s, restore_s, prefill_b,
                        decode_b)
+
+
+def run_bf16_prefill(cfg, params, prompts, *, device):
+    """Prefill (Model.forward over the prompts) of ``cfg`` served in
+    bf16, the type every other assigned architecture serves in: the weights
+    cast to bf16 on ``device``.  Returns (logits, seconds)."""
+    dev = resolve(device)
+    model = build_model(replace(cfg, dtype="bfloat16"))
+    p16 = tree_map(lambda x: x.to(device=dev, dtype=torch.bfloat16), params)
+    t0 = time.perf_counter()
+    logits, _ = model.forward(p16, {"tokens": prompts.to(dev)})
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return logits, time.perf_counter() - t0
 
 
 # ---------------------------------------------------------------------------
@@ -374,14 +424,16 @@ def upper_batch(seed: int = 0, jobs: int = UPPER_JOBS, n: int = UPPER_SITES):
 def check_decide(dev, captured: dict, *, upper_jobs: int = UPPER_JOBS) -> dict:
     """K4 on the card against its plain version on the card and against
     the numpy pass _score_numpy on the host: destinations exactly equal,
-    on real ticks, the hand-built cells and the upper fleet batch, under
+    on real ticks, the hand-built cells, the upper fleet batch and a cell
+    of more sites than the kernel stages at a time, under
     the policy's params, the stochastic gate and min_benefit 0.  Then the
     kernel's time at the upper shape, beside its plain version and bound."""
     hand, expect = hand_batch()
     upper = upper_batch(jobs=upper_jobs)
     base = captured["paper-table6 week"][1]
     batches = [(name, captured[name][0]) for name, _ in FLEET_PATHS]
-    batches += [("hand-built", hand), ("synthetic upper fleet", upper)]
+    batches += [("hand-built", hand), ("synthetic upper fleet", upper),
+                ("synthetic wide cell", upper_batch(1, WIDE_JOBS, WIDE_SITES))]
     param_sets = (("policy", base), ("stochastic", replace(base, **STOCH_PARAMS)),
                   ("min_benefit 0", replace(base, min_benefit_s=0.0)))
     for name, batch in batches:
@@ -408,18 +460,29 @@ def check_decide(dev, captured: dict, *, upper_jobs: int = UPPER_JOBS) -> dict:
             f"and _score_numpy under {len(param_sets)} param sets; rows that move {moved}")
 
     sc = pk.kernel_scalars(base)
-    fleet = captured["fleet-compiled week"][0]
-    ftensors = [torch.from_numpy(a).to(dev) for a in (*pk.pack_batch(fleet), fleet.bw)]
-    tick_ms = time_ms(lambda: decide_dest_cuda(*ftensors, **sc))
-    log(f"[kernels] decide_dest at the fleet tick shape {tuple(fleet.bw.shape)}: {tick_ms:.4f} ms")
+    for name in ("paper-table6 week", "fleet-compiled week"):
+        tick = captured[name][0]
+        ttensors = [torch.from_numpy(a).to(dev) for a in (*pk.pack_batch(tick), tick.bw)]
+        tick_ms = time_ms(lambda: decide_dest_cuda(*ttensors, **sc))
+        t_bound, t_by = decide_bound(*ttensors)
+        log(f"[kernels] decide_dest at the {name} tick shape {tuple(tick.bw.shape)}: "
+            f"{tick_ms * 1e3:.2f} us, bound {t_bound * 1e3:.4f} us ({t_by})")
     jobs, sites, bw = (torch.from_numpy(a).to(dev) for a in (*pk.pack_batch(upper), upper.bw))
     ms = time_ms(lambda: decide_dest_cuda(jobs, sites, bw, **sc))
     plain = time_ms(lambda: ref.decide_dest_ref(jobs, sites, bw, **sc))
-    B, K, S = bw.shape
-    nbytes = 8 * (jobs.numel() + sites.numel() + bw.numel() + B * K)
-    b_ms, b_by = bound(nbytes, DECIDE_OPS * B * K * S, F64_FLOPS)
+    b_ms, b_by = decide_bound(jobs, sites, bw)
+    log(f"[kernels] decide_dest at the upper fleet shape {tuple(bw.shape)}: {ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of it")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
                 bound_by=b_by)
+
+
+def decide_bound(jobs, sites, bw):
+    """K4's least time: its float64 inputs read once and its int64 output
+    written once, or DECIDE_OPS float64 operations per element."""
+    B, K, S = bw.shape
+    nbytes = 8 * (jobs.numel() + sites.numel() + bw.numel() + B * K)
+    return bound(nbytes, DECIDE_OPS * B * K * S, F64_FLOPS)
 
 
 def run_fleet_paths(dev, cpu: dict) -> dict:
@@ -494,39 +557,61 @@ def phase_build() -> None:
     log(f"[build] {path.name} ready in {time.time() - t0:.1f} s")
     log_file = _build.log_path(path)
     if log_file.exists():
-        for line in log_file.read_text().splitlines():
-            if "registers" in line or "spill" in line or line.startswith("built"):
-                log(f"[build]   {line.strip()}")
+        lines = [ln.strip() for ln in log_file.read_text().splitlines()
+                 if "entry function" in ln or "registers" in ln or "spill" in ln
+                 or ln.startswith("built")]
+        filt = shutil.which("c++filt")  # the kernels' names, demangled
+        if filt:
+            out = subprocess.run([filt], input="\n".join(lines), capture_output=True, text=True)
+            if out.returncode == 0 and len(out.stdout.splitlines()) == len(lines):
+                lines = out.stdout.splitlines()
+        for line in lines:
+            log(f"[build]   {line}")
+
+
+def _check_flash_cases(dev, gen, cases, dtype, tol) -> float:
+    worst = 0.0
+    for b, s, t, nh, nkv, hd, mask, win, cap in cases:
+        q = randn(gen, (b, s, nh, hd), dev).to(dtype)
+        k = randn(gen, (b, t, nkv, hd), dev).to(dtype)
+        v = randn(gen, (b, t, nkv, hd), dev).to(dtype)
+        kw = dict(mask_kind=mask, window=win, attn_softcap=cap)
+        got = flash_attention_cuda(q, k, v, **kw).float()
+        want = ref.flash_attention_ref(q, k, v, **kw).float()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, atol=tol, rtol=tol):
+            raise RuntimeError(f"flash_attention {dtype} {(b, s, t, nh, nkv, hd, mask, win, cap)}: "
+                               f"max abs err {err} beyond {tol}")
+        worst = max(worst, err)
+    log(f"[kernels] flash_attention {dtype}: {len(cases)} shapes within {tol} of the plain "
+        f"version, max abs err {worst:.3e}")
+    return worst
 
 
 def check_flash(dev, gen):
-    worst = 0.0
-    for b, s, t, nh, nkv, hd, mask, win, cap in FLASH_CASES:
-        q = randn(gen, (b, s, nh, hd), dev)
-        k = randn(gen, (b, t, nkv, hd), dev)
-        v = randn(gen, (b, t, nkv, hd), dev)
-        kw = dict(mask_kind=mask, window=win, attn_softcap=cap)
-        got = flash_attention_cuda(q, k, v, **kw)
-        want = ref.flash_attention_ref(q, k, v, **kw)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if not torch.allclose(got, want, atol=FLASH_TOL, rtol=FLASH_TOL):
-            raise RuntimeError(f"flash_attention {(b, s, t, nh, nkv, hd, mask, win, cap)}: "
-                               f"max abs err {err} beyond {FLASH_TOL}")
-        worst = max(worst, err)
-    log(f"[kernels] flash_attention: {len(FLASH_CASES)} shapes within {FLASH_TOL} of the plain "
-        f"version, max abs err {worst:.3e}")
+    """K1 in float32 and bf16 against its plain version, then both timed at
+    the slice's shape beside the plain version and SDPA on the same inputs.
+    Bounds on the tensor-core route: float32 as 3 TF32 products."""
+    worst = _check_flash_cases(dev, gen, FLASH_CASES, torch.float32, FLASH_TOL)
+    worst_bf16 = _check_flash_cases(dev, gen, FLASH_BF16_CASES, torch.bfloat16, FLASH_BF16_TOL)
 
     b, s, nh, hd = BATCH, PROMPT, 6, 64
-    q, k, v = (randn(gen, (b, s, nh, hd), dev) for _ in range(3))
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    ms = time_ms(lambda: flash_attention_cuda(q, k, v))
-    plain = time_ms(lambda: ref.flash_attention_ref(q, k, v))
-    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
     pairs = b * nh * s * (s + 1) // 2  # causal (q, k) pairs this input needs
-    b_ms, b_by = bound(4 * q.numel() * 4, 4 * hd * pairs)
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                bound_by=b_by)
+    out = {}
+    for name, dtype, err, peak, split in (
+            ("flash_attention", torch.float32, worst, TF32_FLOPS, TF32_SPLIT),
+            ("flash_attention_bf16", torch.bfloat16, worst_bf16, BF16_FLOPS, 1)):
+        q, k, v = (randn(gen, (b, s, nh, hd), dev).to(dtype) for _ in range(3))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        ms = time_ms(lambda: flash_attention_cuda(q, k, v))
+        plain = time_ms(lambda: ref.flash_attention_ref(q, k, v))
+        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+        b_ms, b_by = bound(4 * q.numel() * q.element_size(), split * 4 * hd * pairs, peak)
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                         bound_by=b_by)
+    return out
 
 
 def _ragged_inputs(gen, dev):
@@ -628,6 +713,29 @@ def check_slice(res: SliceResult, cfg, params, prompts, dev):
             raise RuntimeError(f"{name} prefill vs step-by-step decode on the card: {derr}")
         log(f"[checks] {name}: forward on the card vs CPU plain path max abs err {err:.3e} "
             f"(tol {MODEL_TOL}); prefill vs decode {derr:.3e} (tol {DECODE_TOL})")
+
+
+def check_bf16_prefill(logits, cfg, params, prompts):
+    """The bf16 prefill's logits against the same bf16 forward on the CPU
+    plain path.  Also prints how far each of the two lies from the float32
+    forward of the same bf16-rounded weights on the CPU (not a gate)."""
+    if logits.shape != (BATCH, PROMPT, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"bf16 prefill logits: shape {tuple(logits.shape)} or not finite")
+    host = tree_map(lambda x: x.cpu(), params)
+    plain, _ = run_bf16_prefill(cfg, host, prompts.cpu(), device="cpu")
+    card, plain = logits.float().cpu(), plain.float()
+    diff = (card - plain).abs()
+    err = float(diff.max())
+    # the largest share of allclose's bound atol + rtol * |plain| that any logit uses
+    share = float((diff / (MODEL_BF16_TOL * (1 + plain.abs()))).max())
+    if not torch.allclose(card, plain, atol=MODEL_BF16_TOL, rtol=MODEL_BF16_TOL):
+        raise RuntimeError(f"bf16 prefill on the card vs the CPU plain path: {err}")
+    exact, _ = build_model(cfg).forward(tree_map(lambda x: x.to(torch.bfloat16).float(), host),
+                                        {"tokens": prompts.cpu()})
+    log(f"[checks] bf16 prefill logits vs the CPU plain path: max abs err {err:.3e}, at most "
+        f"{100 * share:.1f}% of the bound (tol {MODEL_BF16_TOL} abs and rel); from the float32 "
+        f"forward: card {float((card - exact).abs().max()):.3e}, plain "
+        f"{float((plain - exact).abs().max()):.3e}")
 
 
 def _device_us(evt) -> float:
@@ -760,7 +868,7 @@ def main() -> int:
     params = model.init(0, device=dev)
     n_params = sum(x.numel() for _, x in flatten_with_paths(params))
     leaves = [x for _, x in flatten_with_paths(params)]
-    stats = {"flash_attention": check_flash(dev, gen)}
+    stats = check_flash(dev, gen)
     stats["quantize_int8"], stats["dequantize_int8"] = check_quantize(dev, gen, leaves)
     cpu, captured = run_cpu_paths()
     stats["decide_dest"] = check_decide(dev, captured)
@@ -777,6 +885,7 @@ def main() -> int:
         launches = ops.launch_counts()
         expect = {"flash_attention": 2 * cfg.num_layers, "quantize_int8": len(leaves),
                   "dequantize_int8": len(leaves), "decide_dest": 0}
+        expect["flash_attention_bf16"] = 0
         if launches != expect:
             raise RuntimeError(f"launch counts of the slice {launches}, expected {expect}")
         log(f"[slice] micro-lm, {n_params} params, {BATCH} requests x {PROMPT} prompt + {NEW} "
@@ -792,6 +901,17 @@ def main() -> int:
             f"{float(v.t_cost_s):.4f} s, feasible {bool(v.feasible)}; migrate {res.migrate_s:.3f} s; "
             f"restore {res.restore_s:.3f} s")
         check_slice(res, cfg, params, prompts, dev)
+    ops.reset_launch_counts()
+    logits16, prefill16_s = run_bf16_prefill(cfg, params, prompts, device=dev)
+    counts16 = ops.launch_counts()
+    expect16 = dict.fromkeys(counts16, 0)
+    expect16["flash_attention_bf16"] = cfg.num_layers
+    if counts16 != expect16:
+        raise RuntimeError(f"launch counts of the bf16 prefill {counts16}, expected {expect16}")
+    launches["flash_attention_bf16"] = counts16["flash_attention_bf16"]
+    check_bf16_prefill(logits16, cfg, params, prompts)
+    log(f"[slice] micro-lm in bf16: prefill of {BATCH} x {PROMPT} tokens {prefill16_s * 1e3:.2f} ms "
+        f"(first call); launches {counts16}")
     fleet_launches = run_fleet_paths(dev, cpu)
     launches["decide_dest"] = sum(fleet_launches.values())
     check_spawn_pool(dev)

@@ -37,9 +37,10 @@ _c_int = ctypes.c_int
 _c_ll = ctypes.c_longlong
 _c_dbl = ctypes.c_double
 SIGNATURES = {
-    # q, k, v, o, b, s, t, nh, nkv, hd, mask, window, softcap, scale, device, stream
-    "repro_flash_attention_fwd_f32": [_c_ptr] * 4 + [_c_int] * 8
-    + [ctypes.c_float, ctypes.c_float, _c_int, _c_ptr],
+    # q, k, v, o, b, s, t, nh, nkv, hd, mask, window, softcap, scale, dtype,
+    # device, stream
+    "repro_flash_attention_fwd": [_c_ptr] * 4 + [_c_int] * 8
+    + [ctypes.c_float, ctypes.c_float, _c_int, _c_int, _c_ptr],
     # x, q, scale, groups, device, stream
     "repro_quantize_int8_f32": [_c_ptr] * 3 + [_c_ll, _c_int, _c_ptr],
     # q, scale, x, n, device, stream

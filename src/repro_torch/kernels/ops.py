@@ -16,11 +16,13 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import quantize as qz
 from repro_torch.kernels import ref
 
-_WRAPPERS = {
-    "flash_attention": fa.flash_attention_cuda,
-    "quantize_int8": qz.quantize_int8_cuda,
-    "dequantize_int8": qz.dequantize_int8_cuda,
-    "decide_dest": dc.decide_dest_cuda,
+# counter name -> (wrapper, the wrapper's attribute that counts the launches)
+_COUNTERS = {
+    "flash_attention": (fa.flash_attention_cuda, "launches"),
+    "flash_attention_bf16": (fa.flash_attention_cuda, "launches_bf16"),
+    "quantize_int8": (qz.quantize_int8_cuda, "launches"),
+    "dequantize_int8": (qz.dequantize_int8_cuda, "launches"),
+    "decide_dest": (dc.decide_dest_cuda, "launches"),
 }
 
 
@@ -68,9 +70,9 @@ def decide_dest(jobs: torch.Tensor, sites: torch.Tensor, bw: torch.Tensor,
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: w.launches for name, w in _WRAPPERS.items()}
+    return {name: getattr(w, attr) for name, (w, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for w in _WRAPPERS.values():
-        w.launches = 0
+    for w, attr in _COUNTERS.values():
+        setattr(w, attr, 0)

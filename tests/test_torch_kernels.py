@@ -97,8 +97,8 @@ def test_ops_on_cpu_take_plain_path_and_count_nothing():
     x = torch.from_numpy(_quant_cases()["rows-3"])
     qv, sv = ops.quantize_int8(x)
     ops.dequantize_int8(qv, sv)
-    assert ops.launch_counts() == {"flash_attention": 0, "quantize_int8": 0, "dequantize_int8": 0,
-                                   "decide_dest": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bf16": 0,
+                                   "quantize_int8": 0, "dequantize_int8": 0, "decide_dest": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -106,9 +106,13 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     q = torch.zeros(1, 64, 2, 32)
     with pytest.raises(ValueError):
         flash_attention_cuda(q, q, q)
+    qb = q.to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(qb, qb, qb)
     with pytest.raises(ValueError):
         quantize_int8_cuda(torch.zeros(256))
     with pytest.raises(ValueError):
         dequantize_int8_cuda(torch.zeros(256, dtype=torch.int8), torch.ones(1))
-    assert ops.launch_counts() == {"flash_attention": 0, "quantize_int8": 0, "dequantize_int8": 0,
-                                   "decide_dest": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bf16": 0,
+                                   "quantize_int8": 0, "dequantize_int8": 0, "decide_dest": 0}
+

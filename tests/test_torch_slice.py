@@ -54,8 +54,8 @@ def test_serving_slice_matches_reference(tmp_path):
     ops.reset_launch_counts()
     res = chip_smoke.run_slice(cfg, params, torch.from_numpy(prompts).long(), str(tmp_path / "torch"),
                                max_new=NEW, device="cpu")
-    assert ops.launch_counts() == {"flash_attention": 0, "quantize_int8": 0, "dequantize_int8": 0,
-                                   "decide_dest": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bf16": 0,
+                                   "quantize_int8": 0, "dequantize_int8": 0, "decide_dest": 0}
 
     np.testing.assert_allclose(res.logits_a.numpy(), np.asarray(jlogits_a), atol=TOL, rtol=TOL)
     np.testing.assert_array_equal(res.tokens_a.numpy(), np.asarray(jtokens_a))
@@ -73,3 +73,27 @@ def test_serving_slice_matches_reference(tmp_path):
         np.testing.assert_array_equal(x.numpy(), jb["/".join(path)])
     np.testing.assert_allclose(res.logits_b.numpy(), np.asarray(jlogits_b), atol=TOL, rtol=TOL)
     np.testing.assert_array_equal(res.tokens_b.numpy(), np.asarray(jtokens_b))
+
+
+def test_bf16_prefill_matches_reference():
+    """chip_smoke.run_bf16_prefill (micro-lm served in bf16) on the CPU
+    against the JAX package's forward with the same weights cast to bf16
+    and its config's dtype set to bf16: bf16 on both sides, rounded in
+    different places, so chip_smoke's bf16 model tolerance."""
+    jcfg = dataclasses.replace(jget_config("micro-lm").reduced(), dtype="bfloat16")
+    jparams = jbuild_model(jget_config("micro-lm").reduced()).init(jax.random.PRNGKey(0))
+    prompts = SyntheticLMDataset(jcfg.vocab_size, P, B, seed=1).batch(0)["tokens"]
+    jparams16 = jax.tree.map(lambda x: x.astype(jnp.bfloat16), jparams)
+    jlogits, _ = jbuild_model(jcfg).forward(jparams16, {"tokens": jnp.asarray(prompts)})
+
+    cfg = get_config("micro-lm").reduced()
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    ops.reset_launch_counts()
+    logits, _ = chip_smoke.run_bf16_prefill(cfg, params, torch.from_numpy(prompts).long(),
+                                            device="cpu")
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bf16": 0,
+                                   "quantize_int8": 0, "dequantize_int8": 0, "decide_dest": 0}
+    assert logits.dtype == torch.bfloat16
+    want = np.asarray(jlogits.astype(jnp.float32))
+    np.testing.assert_allclose(logits.float().numpy(), want, atol=chip_smoke.MODEL_BF16_TOL,
+                               rtol=chip_smoke.MODEL_BF16_TOL)
