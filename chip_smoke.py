@@ -31,7 +31,19 @@ Phases, each of which raises on failure:
                 check in phase 3) and the fleet week the recorded
                 benchmarks/BENCH_quick.json row;
   7. profile -- device busy share and top kernels of prefill and decode,
-                and of a profiled rerun of each fleet path.
+                and of a profiled rerun of each fleet path;
+  8. train   -- the training slice at micro-lm's full width: the attention
+                backward kernel against its plain version (and timed);
+                two train steps on the card against the same two through
+                device="cpu"; the job lifecycle through Trainer (site A
+                trains to step 12 with a checkpoint every 4 steps, is
+                preempted, the gate reads the measured bytes, migrate_job,
+                site B restores onto the card and trains to step 24) in full
+                mode against an unmigrated run, and in int8 mode with
+                int8-compressed gradients; launch.train.main on the default
+                device; each run with the launch counters set to 0 just
+                before it and held to exact counts just after; the step's
+                device time, busy share and top device ops.
 Then one JSON line of per-kernel numbers, and last the ok line.  Nothing
 runs on the CPU in place of the card: without a card the script exits 1.
 """
@@ -69,10 +81,15 @@ from repro_torch.core.migration import migrate_job  # noqa: E402
 from repro_torch.device import resolve  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.decide import decide_dest_cuda  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_bwd_cuda, flash_attention_cuda, flash_attention_lse_cuda)
 from repro_torch.kernels.quantize import dequantize_int8_cuda, quantize_int8_cuda  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.launch.serve import greedy_decode  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig, apply_updates, init_opt_state  # noqa: E402
+from repro_torch.train.train_step import TrainStepConfig, make_train_step, value_and_grad  # noqa: E402
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
 # The slice: 8 requests of 512 prompt tokens (the synthetic LM stream), 64
 # new tokens each.
@@ -129,6 +146,55 @@ FLASH_BF16_CASES = [
 ]
 RAGGED_GROUPS = (1, 3, 100, 1001)
 
+# The attention backward (float32 only): K1's float32 shapes and, in
+# float32, its bf16 SWEEP shapes.
+FLASH_BWD_CASES = FLASH_CASES + FLASH_BF16_CASES[:2]
+# Attention backward vs its plain version (the autograd of the plain
+# forward), both float32 on the card, as a share of the largest |gradient|
+# of each of dQ, dK, dV: each gradient sums up to s * nh / nkv products over
+# query rows (dK, dV) or t over keys (dQ) in another order than the plain
+# version, recomputes P from K1's 3xTF32 scores and lse (~1e-6 relative),
+# and takes D from K1's output; the same algorithm in float32 on the CPU
+# lies within 1.5e-6 of the largest gradient, so 1e-4 leaves room for the
+# kernel's sums and stays far below any real fault (a wrong mask or softcap
+# term moves a gradient by its own size).
+GRAD_TOL = 1e-4
+# lse from K1 vs the plain log-sum-exp (base 2): K1's 3xTF32 scores, its
+# 2^x and its running max and sum; 1e-5 as K1's own output.
+LSE_TOL = 1e-5
+# The attention backward's work: 5 products of 2 hd flops per visible
+# (q, k) pair (S recomputed, dP, dV, dK, dQ) = 2.5x the forward's 2.
+BWD_FLOPS_PER_PAIR_HD = 10
+
+# The training slice: micro-lm at full width, 8 sequences x 512 tokens a
+# step (K1 on the shape it is measured at), remat "full", AdamW at the
+# reference's default lr 3e-4 (AdamWConfig, launch/train.py) with 3 warmup
+# steps.  At full width the loss falls over 24 steps at 3e-4 and not at
+# 1e-3 or 3e-3 (the reduced model's test lr).  Site A trains to step 12
+# with a checkpoint every 4 steps and is preempted; site B finishes at
+# step 24.
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+TRAIN_STEPS, TRAIN_PREEMPT, TRAIN_SAVE_EVERY = 24, 12, 4
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 3
+# Card against CPU: 2 steps on 2 x 512 tokens.  Step 1 sees the same
+# params: the loss is one float32 reduction over 1,024 tokens of logits
+# that differ by the card's other summation order and K1's 3xTF32
+# (~1e-6 relative), so 1e-5; each first-step gradient leaf within 1e-4 of
+# its largest element (the attention backward's own 1e-4, through 8
+# layers of float32 GEMMs that add ~1e-6), and the grad norm 1e-5.  Step 2
+# starts from params one AdamW step apart: AdamW's first step moves every
+# element by lr times the sign of its gradient, so an element whose
+# gradient is ~0 (its sign set by rounding) may move the other way on the
+# other device: loss and grad norm 1e-4.
+CARD_CPU_BATCH = 2
+CARD_CPU_LOSS_TOL = (1e-5, 1e-4)
+CARD_CPU_GNORM_TOL = (1e-5, 1e-4)
+CARD_CPU_GRAD_TOL = 1e-4
+# Migrated (full checkpoint) vs unmigrated final params: the restore is
+# exact and the card runs the same kernels on the same inputs, so equal;
+# 1e-6 as tests/test_system.py::test_full_migration_cycle.
+MIGRATION_TOL = 1e-6
+
 KERNELS = {
     "flash_attention": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
@@ -145,6 +211,11 @@ KERNELS = {
     "decide_dest": dict(
         route="cuda", source="src/repro_torch/csrc/decide.cu",
         replaces="src/repro/core/policy_kernels.py:609"),
+    # no TPU kernel: the JAX package trains through XLA's autodiff of
+    # flash_attention_ref (src/repro/train/train_step.py:33)
+    "flash_attention_bwd": dict(
+        route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/ref.py:17"),
 }
 # H100 SXM data sheet (NVIDIA spec): HBM 3.35 TB/s; float32 outside the
 # tensor cores 67 TFLOP/s; float64 outside the tensor cores 34 TFLOP/s;
@@ -289,6 +360,163 @@ def run_bf16_prefill(cfg, params, prompts, *, device):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return logits, time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
+# The training slice (also run on the CPU by tests/test_torch_train.py)
+# ---------------------------------------------------------------------------
+
+
+def make_trainer(cfg, root, *, steps, save_every, mode, grad_compress, batch, seq, device,
+                 preempt_at=None) -> Trainer:
+    """A Trainer of ``cfg`` on the synthetic LM stream (seed 0), AdamW on
+    the cosine schedule, remat "full", checkpoints under ``root``."""
+    step_cfg = TrainStepConfig(opt=AdamWConfig(lr=TRAIN_LR), total_steps=steps,
+                               warmup_steps=TRAIN_WARMUP, grad_compress=grad_compress,
+                               remat_policy="full")
+    trainer = Trainer(
+        build_model(cfg), SyntheticLMDataset(cfg.vocab_size, seq, batch),
+        CheckpointManager(root, job=cfg.name, mode=mode),
+        TrainerConfig(total_steps=steps, save_every=save_every, log_every=1, ckpt_mode=mode,
+                      step_cfg=step_cfg), device=device)
+    if preempt_at is not None:
+        trainer.preempt_signal = lambda step: step >= preempt_at
+    return trainer
+
+
+def saves_in(start: int, stop: int, save_every: int) -> int:
+    """Saves Trainer.run makes from step ``start`` to ``stop``: one at every
+    multiple of save_every, and one when it stops (preempted, or at the end
+    of its budget)."""
+    return sum(1 for st in range(start + 1, stop + 1) if st % save_every == 0) + 1
+
+
+def train_launches(cfg, trainer: Trainer, *, steps: int, saves: int = 0,
+                   restores: int = 0) -> dict:
+    """The launches a stretch of the training path makes, from the code:
+    per step, K1 once per attention layer in the forward and once more in
+    remat's recompute (its custom Function is no matmul, so "dots" reruns
+    it too), the backward kernel once per layer, and under grad_compress
+    K2 and K3 once per float grad leaf of at least one 256-element block;
+    per int8 save K2, per int8 restore K3, once per float leaf of the state
+    (params, master, m, v)."""
+    layers = cfg.num_groups * sum(kind == "attn" for kind in cfg.block_pattern)
+    sc = trainer.cfg.step_cfg
+    k1 = layers * (1 if sc.remat_policy == "none" else 2)
+    state_leaves = sum(1 for _, x in flatten_with_paths(trainer.state_tree())
+                       if isinstance(x, torch.Tensor) and x.is_floating_point())
+    grad_leaves = sum(1 for _, x in flatten_with_paths(trainer.params)
+                      if x.is_floating_point() and x.numel() >= 256)
+    gc = grad_leaves * steps if sc.grad_compress else 0
+    int8 = trainer.cfg.ckpt_mode != "full"
+    return {"flash_attention": k1 * steps, "flash_attention_bf16": 0,
+            "flash_attention_bwd": layers * steps,
+            "quantize_int8": gc + (state_leaves * saves if int8 else 0),
+            "dequantize_int8": gc + (state_leaves * restores if int8 else 0),
+            "decide_dest": 0}
+
+
+@dataclass
+class TrainResult:
+    mode: str
+    grad_compress: bool
+    history: list  # site A's rows, then site B's
+    state_a: dict  # site A's state at preemption
+    state_b0: dict  # site B's state just after restore
+    params_b: dict
+    params_ref: object  # the unmigrated run's final params (None if not run)
+    manager_b: CheckpointManager
+    raw_b: bytes  # the checkpoint site B restored
+    launches: dict  # segment -> (counted, expected)
+    nbytes: int
+    verdict: feasibility.FeasibilityVerdict
+    report: object
+    save_s: float
+    migrate_s: float
+    restore_s: float
+    run_a_s: float
+    run_b_s: float
+
+
+def run_train_lifecycle(cfg, workdir, *, mode, grad_compress, device, batch=TRAIN_BATCH,
+                        seq=TRAIN_SEQ, reference=True) -> TrainResult:
+    """Train at site A until preempted, gate on the measured checkpoint,
+    migrate_job, restore at site B on ``device`` and finish there; with
+    ``reference``, first an unmigrated run of all the steps.  Each stretch
+    runs with the launch counters set to 0 just before it and read just
+    after, beside the counts ``train_launches`` derives for it."""
+    dev = resolve(device)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    steps, preempt, save_every = TRAIN_STEPS, TRAIN_PREEMPT, TRAIN_SAVE_EVERY
+    launches = {}
+
+    def segment(name, fn, expect):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        dt = time.perf_counter() - t0
+        launches[name] = (ops.launch_counts(), expect())
+        return out, dt
+
+    kw = dict(mode=mode, grad_compress=grad_compress, batch=batch, seq=seq, device=dev)
+    params_ref = None
+    if reference:
+        ref_tr = make_trainer(cfg, os.path.join(workdir, "unmigrated"), steps=steps,
+                              save_every=steps, **kw)
+        segment("unmigrated", ref_tr.run, lambda: train_launches(
+            cfg, ref_tr, steps=steps, saves=saves_in(0, steps, steps)))
+        params_ref = ref_tr.params
+    a = make_trainer(cfg, os.path.join(workdir, "siteA"), steps=steps, save_every=save_every,
+                     preempt_at=preempt, **kw)
+    status_a, run_a_s = segment("site A", a.run, lambda: train_launches(
+        cfg, a, steps=preempt, saves=saves_in(0, preempt, save_every)))
+    if status_a["status"] != "preempted" or status_a["step"] != preempt:
+        raise RuntimeError(f"site A: {status_a}, expected preempted at step {preempt}")
+    nbytes = a.ckpt.latest_bytes
+    save_s = a.ckpt.latest.wall_time_s
+    verdict = feasibility.evaluate(nbytes, BANDWIDTH_BPS, WINDOW_S)
+    if not bool(verdict.feasible):
+        raise RuntimeError(f"feasibility gate refused {nbytes} B at {BANDWIDTH_BPS} b/s: {verdict}")
+    t0 = time.perf_counter()
+    dst, report = migrate_job(a.ckpt, os.path.join(workdir, "siteB"),
+                              bandwidth_bps=BANDWIDTH_BPS, window_s=WINDOW_S)
+    migrate_s = time.perf_counter() - t0
+    raw_b = dst.export_bytes()
+    b = make_trainer(cfg, os.path.join(workdir, "siteB"), steps=steps, save_every=save_every,
+                     **kw)
+    b.ckpt = dst
+    restored, restore_s = segment("site B restore", b.restore, lambda: train_launches(
+        cfg, b, steps=0, restores=1))
+    if restored != preempt:
+        raise RuntimeError(f"site B restored step {restored}, expected {preempt}")
+    state_b0 = b.state_tree()
+    status_b, run_b_s = segment("site B", b.run, lambda: train_launches(
+        cfg, b, steps=steps - preempt, saves=saves_in(preempt, steps, save_every)))
+    if status_b["status"] != "done" or status_b["step"] != steps:
+        raise RuntimeError(f"site B: {status_b}, expected done at step {steps}")
+    return TrainResult(mode, grad_compress, a.history + b.history, a.state_tree(), state_b0,
+                       b.params, params_ref, dst, raw_b, launches, nbytes, verdict, report, save_s,
+                       migrate_s, restore_s, run_a_s, run_b_s)
+
+
+def run_train_steps(cfg, params, batches, *, device):
+    """The first batch's gradients, then one train step per batch, from
+    ``params`` copied to ``device``.  Returns (grads, [metrics per step])."""
+    dev = resolve(device)
+    model = build_model(cfg)
+    p = tree_map(lambda x: x.detach().to(dev, copy=True), params)
+    step_cfg = TrainStepConfig(opt=AdamWConfig(lr=TRAIN_LR), total_steps=TRAIN_STEPS,
+                               warmup_steps=TRAIN_WARMUP)
+    _, grads = value_and_grad(model, p, {k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()},
+                              step_cfg.remat_policy)
+    step = make_train_step(model, step_cfg)
+    opt = init_opt_state(p)
+    metrics = []
+    for batch in batches:
+        p, opt, m = step(p, opt, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return grads, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -614,6 +842,69 @@ def check_flash(dev, gen):
     return out
 
 
+def check_flash_bwd(dev, gen) -> dict:
+    """The attention backward (with K1's lse) against its plain version on
+    FLASH_BWD_CASES, then timed at the training slice's shape beside the
+    plain version's and SDPA's backward (each a forward plus backward, minus
+    that forward) and its bound."""
+    worst, worst_share, worst_lse = 0.0, 0.0, 0.0
+    for b, s, t, nh, nkv, hd, mask, win, cap in FLASH_BWD_CASES:
+        q, do = (randn(gen, (b, s, nh, hd), dev) for _ in range(2))
+        k, v = (randn(gen, (b, t, nkv, hd), dev) for _ in range(2))
+        kw = dict(mask_kind=mask, window=win, attn_softcap=cap)
+        o, lse = flash_attention_lse_cuda(q, k, v, **kw)
+        got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        want = ref.flash_attention_bwd_ref(q, k, v, do, **kw)
+        lse_err = float((lse - ref.flash_attention_lse_ref(q, k, **kw)).abs().max())
+        torch.cuda.synchronize()
+        shape = (b, s, t, nh, nkv, hd, mask, win, cap)
+        if not lse_err <= LSE_TOL:
+            raise RuntimeError(f"flash_attention lse {shape}: max abs err {lse_err} beyond {LSE_TOL}")
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err = float((g - w).abs().max())
+            share = err / (GRAD_TOL * float(w.abs().max()))
+            if not share <= 1.0:
+                raise RuntimeError(f"flash_attention_bwd {name} {shape}: max abs err {err}, "
+                                   f"{100 * share:.1f}% of {GRAD_TOL} x max|{name}|")
+            worst, worst_share = max(worst, err), max(worst_share, share)
+        worst_lse = max(worst_lse, lse_err)
+    qb = randn(gen, (1, 64, 2, 64), dev).to(torch.bfloat16)
+    try:
+        flash_attention_bwd_cuda(qb, qb, qb, qb, torch.zeros(1, 2, 64, device=dev), qb)
+    except NotImplementedError:
+        pass
+    else:
+        raise RuntimeError("flash_attention_bwd took bf16 inputs")
+    log(f"[kernels] flash_attention_bwd: {len(FLASH_BWD_CASES)} shapes, dQ / dK / dV within "
+        f"{GRAD_TOL} x max|grad| of the plain version (max abs err {worst:.3e}, at most "
+        f"{100 * worst_share:.1f}% of the tolerance); K1's lse within {LSE_TOL} (max abs err "
+        f"{worst_lse:.3e}); bf16 raises NotImplementedError")
+
+    b, s, nh, hd = BATCH, PROMPT, 6, 64
+    q, k, v, do = (randn(gen, (b, s, nh, hd), dev) for _ in range(4))
+    o, lse = flash_attention_lse_cuda(q, k, v)
+    ms = time_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do))
+    plain_fwd = time_ms(lambda: ref.flash_attention_ref(q, k, v))
+    plain = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, do)) - plain_fwd
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    qt, kt, vt = (x.requires_grad_(True) for x in (qt, kt, vt))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+    lib_fwd = time_ms(lambda: sdpa().detach())
+    lib = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot)) - lib_fwd
+    pairs = b * nh * s * (s + 1) // 2  # causal (q, k) pairs this input needs
+    flops = BWD_FLOPS_PER_PAIR_HD * hd * pairs
+    nbytes = 4 * (8 * q.numel() + lse.numel())  # q k v o do in, dq dk dv out, lse in
+    b_ms, b_by = bound(nbytes, TF32_SPLIT * flops, TF32_FLOPS)
+    core_ms, _ = bound(nbytes, flops, F32_FLOPS)
+    log(f"[kernels] flash_attention_bwd at ({b}, {s}, {nh}, {hd}) causal: {ms:.4f} ms; plain "
+        f"{plain:.4f} ms, SDPA backward {lib:.4f} ms (each its forward+backward minus its forward: "
+        f"{plain_fwd:.4f} / {lib_fwd:.4f} ms); bound {b_ms:.4f} ms at the 3xTF32 rate ({b_by}), "
+        f"{core_ms:.4f} ms at the CUDA-core float32 rate; {100 * b_ms / ms:.1f}% / "
+        f"{100 * core_ms / ms:.1f}% of them")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by)
+
+
 def _ragged_inputs(gen, dev):
     xs = []
     for groups in RAGGED_GROUPS:
@@ -857,6 +1148,179 @@ def phase_profile(cfg, params, prompts, dev) -> None:
             log(f"[profile]   {_device_us(e):9.0f} us  x{e.count:<5d} {e.key[:90]}")
 
 
+def check_card_vs_cpu(cfg, params, dev) -> None:
+    """Two train steps of micro-lm from the same params on the card and
+    through device="cpu", on the same batches: losses, grad norms and the
+    first step's gradients."""
+    data = SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, CARD_CPU_BATCH)
+    batches = [data.batch(i) for i in range(2)]
+    t0 = time.perf_counter()
+    g_cpu, m_cpu = run_train_steps(cfg, params, batches, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    g_card, m_card = run_train_steps(cfg, params, batches, device=dev)
+    parts = []
+    for i, (mc, mk) in enumerate(zip(m_cpu, m_card)):
+        for key, tol in (("loss", CARD_CPU_LOSS_TOL[i]), ("grad_norm", CARD_CPU_GNORM_TOL[i])):
+            rel = abs(mk[key] - mc[key]) / abs(mc[key])
+            if not rel <= tol:
+                raise RuntimeError(f"step {i + 1} {key} on the card {mk[key]} vs the CPU {mc[key]}: "
+                                   f"relative {rel:.3e} beyond {tol}")
+            parts.append(f"step {i + 1} {key} {mk[key]:.6f} (rel {rel:.2e} of {tol})")
+    cpu_of = dict(flatten_with_paths(g_cpu))
+    worst = 0.0
+    for path, g in flatten_with_paths(g_card):
+        want = cpu_of[path]
+        share = float((g.cpu() - want).abs().max()) / (CARD_CPU_GRAD_TOL * float(want.abs().max()))
+        if not share <= 1.0:
+            raise RuntimeError(f"first-step gradient {'/'.join(path)} on the card vs the CPU: "
+                               f"{100 * share:.1f}% of {CARD_CPU_GRAD_TOL} x its max")
+        worst = max(worst, share)
+    log(f"[train] card vs device='cpu', {CARD_CPU_BATCH} x {TRAIN_SEQ} tokens, 2 steps (CPU "
+        f"{cpu_s:.1f} s): {'; '.join(parts)}; first-step gradients within {CARD_CPU_GRAD_TOL} x "
+        f"each leaf's max, at most {100 * worst:.2f}% of it")
+
+
+def check_train_lifecycle(res: TrainResult) -> dict:
+    """The lifecycle's launch counts, falling loss, restored state and (full
+    mode) final params against the unmigrated run.  Returns the summed
+    launches of its runs."""
+    total = {}
+    for name, (got, want) in res.launches.items():
+        if got != want:
+            raise RuntimeError(f"{res.mode}: launch counts of {name} {got}, expected {want}")
+        total = {k: total.get(k, 0) + v for k, v in got.items()}
+    losses = [row["loss"] for row in res.history]
+    if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"{res.mode}: losses {losses} do not fall")
+    a_of = dict(flatten_with_paths(res.state_a))
+    if res.mode == "full":
+        for path, x in flatten_with_paths(res.state_b0):
+            if not torch.equal(torch.as_tensor(x).cpu(), torch.as_tensor(a_of[path]).cpu()):
+                raise RuntimeError(f"restored leaf {'/'.join(path)} differs from site A's state")
+        restored = "equal to site A's state"
+    else:
+        plain = ser.deserialize_tree(ser.from_bytes(res.raw_b), res.state_a, device="cpu")
+        gap = 0.0
+        for (path, x), (_, y) in zip(flatten_with_paths(res.state_b0), flatten_with_paths(plain)):
+            if not torch.equal(torch.as_tensor(x).cpu(), y):
+                raise RuntimeError(f"restored leaf {'/'.join(path)} differs from the CPU plain "
+                                   f"dequantize of the same bytes")
+            if y.is_floating_point():
+                gap = max(gap, float((y - torch.as_tensor(a_of[path]).cpu()).abs().max()))
+        restored = (f"bit-identical to the CPU plain dequantize of the same bytes, max abs "
+                    f"{gap:.3e} from site A's state")
+    migrated = ""
+    if res.params_ref is not None:
+        ref_of = dict(flatten_with_paths(res.params_ref))
+        diff = max(float((x - ref_of[path]).abs().max()) for path, x in flatten_with_paths(res.params_b))
+        if res.mode == "full" and not diff <= MIGRATION_TOL:
+            raise RuntimeError(f"migrated final params differ from the unmigrated run's by {diff}")
+        migrated = f"; final params vs the unmigrated run: max abs diff {diff:.3e} (tol {MIGRATION_TOL})"
+    v = res.verdict
+    tag = f"{res.mode}{' + grad_compress' if res.grad_compress else ''}"
+    log(f"[train] {tag}: site A {TRAIN_PREEMPT} steps {res.run_a_s:.2f} s, preempted; checkpoint "
+        f"{res.nbytes} B saved in {res.save_s:.3f} s; gate: class {int(v.workload_class)}, "
+        f"t_transfer {float(v.t_transfer_s):.4f} s, t_cost {float(v.t_cost_s):.4f} s, feasible "
+        f"{bool(v.feasible)}; migrate {res.migrate_s:.3f} s; restore {res.restore_s:.3f} s, "
+        f"{restored}; site B {TRAIN_STEPS - TRAIN_PREEMPT} steps {res.run_b_s:.2f} s; loss "
+        f"{losses[0]:.4f} -> {losses[TRAIN_PREEMPT - 1]:.4f} -> {losses[-1]:.4f}{migrated}")
+    for name, (got, _) in res.launches.items():
+        log(f"[train]   {tag} {name}: launches {got}, as derived")
+    return total
+
+
+def run_train_launcher(cfg, workdir) -> dict:
+    """launch.train.main on its default device, counted: its defaults are
+    remat "full", full checkpoints and no gradient compression."""
+    steps = 4
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = train_launcher.main(["--arch", "micro-lm", "--steps", str(steps), "--batch",
+                              str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt-dir", workdir])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    expect = dict.fromkeys(counts, 0)
+    expect.update(flash_attention=2 * cfg.num_layers * steps,
+                  flash_attention_bwd=cfg.num_layers * steps)
+    if rc != 0 or counts != expect:
+        raise RuntimeError(f"launch.train: rc {rc}, launch counts {counts}, expected {expect}")
+    log(f"[train] launch.train.main --steps {steps} on the default device: "
+        f"{time.perf_counter() - t0:.2f} s; launches {counts}")
+    return counts
+
+
+# device op name fragments -> the training step's parts
+STEP_PARTS = (("K1 forward", ("flash_fwd",)), ("K1 backward", ("flash_bwd",)),
+              ("GEMMs", ("gemm", "cutlass", "xmma", "cublas")), ("copies", ("Memcpy", "Memset")))
+
+
+def phase_train_profile(cfg, params, dev) -> None:
+    """The warm training step at the slice's shape: device time per step
+    (CUDA events around each step, median of 5), tokens/s, AdamW's time
+    alone, and torch.profiler's busy share and split of two steps."""
+    model = build_model(cfg)
+    step = make_train_step(model, TrainStepConfig(opt=AdamWConfig(lr=TRAIN_LR),
+                                                  total_steps=TRAIN_STEPS,
+                                                  warmup_steps=TRAIN_WARMUP))
+    data = SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(0).items()}
+    p = tree_map(lambda x: x.detach().clone(), params)
+    opt = init_opt_state(p)
+    for _ in range(2):
+        p, opt, _ = step(p, opt, batch)
+    torch.cuda.synchronize()
+    times, walls = [], []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        p, opt, _ = step(p, opt, batch)
+        end.record()
+        end.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        times.append(start.elapsed_time(end))
+    step_ms = statistics.median(times)
+    _, grads = value_and_grad(model, p, batch, "full")
+    adamw_ms = time_ms(lambda: apply_updates(p, grads, opt, AdamWConfig(lr=TRAIN_LR), 1.0))
+    log(f"[train] warm step, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, remat full: {step_ms:.2f} ms "
+        f"(CUDA events, median of 5; host wall {statistics.median(walls):.2f} ms), "
+        f"{TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3):.0f} tokens/s; AdamW alone {adamw_ms:.3f} ms")
+    _, wall_us, events = _profiled(lambda: [step(p, opt, batch) for _ in range(2)])
+    if not events:
+        log("[profile] train step: device time not measured (the profiler saw no device events)")
+        return
+    busy = sum(_device_us(e) for e in events)
+    split = dict.fromkeys([name for name, _ in STEP_PARTS] + ["other"], 0.0)
+    for e in events:
+        part = next((name for name, keys in STEP_PARTS if any(k in e.key for k in keys)), "other")
+        split[part] += _device_us(e)
+    log(f"[profile] 2 train steps: wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
+        f"({100 * busy / wall_us:.1f}%), idle {100 * (1 - busy / wall_us):.1f}%; "
+        + ", ".join(f"{name} {us / 1e3:.2f} ms ({100 * us / busy:.1f}%)" for name, us in split.items()))
+    for e in sorted(events, key=_device_us, reverse=True)[:8]:
+        log(f"[profile]   {_device_us(e):9.0f} us  x{e.count:<5d} {e.key[:90]}")
+
+
+def phase_train(cfg, params, dev) -> dict:
+    """The training slice on the card.  Returns the launches of its counted
+    runs, summed."""
+    check_card_vs_cpu(cfg, params, dev)
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
+        for mode, gc, reference in (("full", False, True), ("int8", True, False)):
+            d = os.path.join(work, mode)
+            res = run_train_lifecycle(cfg, d, mode=mode, grad_compress=gc, device=dev,
+                                      reference=reference)
+            counts = check_train_lifecycle(res)
+            total = {k: total.get(k, 0) + v for k, v in counts.items()}
+            del res
+            shutil.rmtree(d)
+        counts = run_train_launcher(cfg, os.path.join(work, "launcher"))
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    phase_train_profile(cfg, params, dev)
+    return total
+
+
 def main() -> int:
     kind = phase_device()
     dev = resolve("cuda")
@@ -869,6 +1333,7 @@ def main() -> int:
     n_params = sum(x.numel() for _, x in flatten_with_paths(params))
     leaves = [x for _, x in flatten_with_paths(params)]
     stats = check_flash(dev, gen)
+    stats["flash_attention_bwd"] = check_flash_bwd(dev, gen)
     stats["quantize_int8"], stats["dequantize_int8"] = check_quantize(dev, gen, leaves)
     cpu, captured = run_cpu_paths()
     stats["decide_dest"] = check_decide(dev, captured)
@@ -883,9 +1348,9 @@ def main() -> int:
         ops.reset_launch_counts()
         res = run_slice(cfg, params, prompts, work, max_new=NEW, device=dev)
         launches = ops.launch_counts()
-        expect = {"flash_attention": 2 * cfg.num_layers, "quantize_int8": len(leaves),
-                  "dequantize_int8": len(leaves), "decide_dest": 0}
-        expect["flash_attention_bf16"] = 0
+        expect = dict.fromkeys(launches, 0)
+        expect.update(flash_attention=2 * cfg.num_layers, quantize_int8=len(leaves),
+                      dequantize_int8=len(leaves))
         if launches != expect:
             raise RuntimeError(f"launch counts of the slice {launches}, expected {expect}")
         log(f"[slice] micro-lm, {n_params} params, {BATCH} requests x {PROMPT} prompt + {NEW} "
@@ -918,6 +1383,11 @@ def main() -> int:
     phase_profile(cfg, params, prompts, dev)
     phase_profile_fleet(dev)
     phase_host_split(dev)
+    train = phase_train(cfg, params, dev)
+    for name in ("flash_attention", "quantize_int8", "dequantize_int8"):
+        launches[name] += train[name]
+    launches["flash_attention_bwd"] = train["flash_attention_bwd"]
+    log(f"[train] launches of the training runs {train}; all counted paths {launches}")
 
     rows = []
     for name, st in stats.items():

@@ -7,7 +7,10 @@ for the tests and for GRNCKPT1 checkpoints.
 
 ``params_from_numpy`` takes the JAX package's tree as numpy arrays
 (``jax.tree.map(np.asarray, params)``); ``params_to_numpy`` gives it back.
-Leaves are ordered as jax flattens a dict: keys sorted at every level.
+``train_state_from_numpy`` / ``train_state_to_numpy`` do the same for a
+whole training state, the trainers' ``state_tree()``: ``{"params", "opt":
+{"step", "master", "m", "v"}, "step"}``.  Leaves are ordered as jax
+flattens a dict: keys sorted at every level.
 """
 from __future__ import annotations
 
@@ -55,3 +58,20 @@ def params_from_numpy(tree, device: DeviceLike = None) -> dict:
 def params_to_numpy(tree) -> dict:
     """Host copy of a tree (the gather before a checkpoint is written)."""
     return tree_map(to_numpy, tree)
+
+
+def train_state_from_numpy(state, device: DeviceLike = None) -> dict:
+    """A training state as numpy (e.g. ``jax.tree.map(np.asarray,
+    trainer.state_tree())``) onto ``device``: params and optimizer state as
+    tensors (``opt["step"]`` a 0-d int32 tensor), the top-level ``step`` as
+    an int."""
+    return {"params": params_from_numpy(state["params"], device),
+            "opt": params_from_numpy(state["opt"], device),
+            "step": int(state["step"])}
+
+
+def train_state_to_numpy(state) -> dict:
+    """Host copy of a training state; ``step`` as ``np.int32``, as the
+    reference's ``state_tree()`` holds it."""
+    return {"params": params_to_numpy(state["params"]), "opt": params_to_numpy(state["opt"]),
+            "step": np.int32(state["step"])}

@@ -8,7 +8,8 @@
 // left-aligned positions (masked scores are NEG_INF = -2e38, as in the
 // reference), online softmax with float32 (m, l, acc) carries, output
 // acc / max(l, 1e-30) in the input's type.  The kv head of query head h is
-// h / (nh / nkv).
+// h / (nh / nkv).  For training, the kernel also writes each row's
+// log-sum-exp (base 2, see the entry below), which the backward reads.
 //
 // What bounds it on the card: operations.  At the serving slice's shape
 // (8, 512, 6, 64), causal, the two products need ~1.6 GFLOP against ~25 MB
@@ -213,8 +214,8 @@ __device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src, int
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int s, int t, int nh, int nkv, int mask, int window,
-                 float softcap, float scale) {
+                 T* __restrict__ o, float* __restrict__ lse, int s, int t, int nh, int nkv,
+                 int mask, int window, float softcap, float scale) {
   using C = Cfg<T, HD>;
   constexpr int kBk = C::kBk, kS = C::kStride;
   constexpr int kNT = kBk / 8;  // score n-tiles (8 keys) per k tile
@@ -490,6 +491,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int qi = qw + g + 8 * r;
     if (qi >= s) continue;
     const float den = fmaxf(lr, 1e-30f);
+    if (lse != nullptr && tig == 0) lse[((long long)b * nh + h) * s + qi] = m[r] + log2f(den);
     T* dst = o + (((long long)b * s + qi) * nh + h) * HD + 2 * tig;
 #pragma unroll
     for (int n = 0; n < kDT; ++n) {
@@ -504,8 +506,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int b, int s, int t, int nh,
-           int nkv, int mask, int window, float softcap, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int b, int s, int t,
+           int nh, int nkv, int mask, int window, float softcap, float scale,
+           cudaStream_t stream) {
   const size_t bytes = Cfg<T, HD>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -515,39 +518,47 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int s, i
   const dim3 grid(nh, b, tiles);
   flash_fwd_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), s, t, nh, nkv, mask, window, softcap, scale);
+      static_cast<T*>(o), lse, s, t, nh, nkv, mask, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_hd(const void* q, const void* k, const void* v, void* o, int b, int s, int t, int nh,
-              int nkv, int hd, int mask, int window, float softcap, float scale,
+int launch_hd(const void* q, const void* k, const void* v, void* o, float* lse, int b, int s,
+              int t, int nh, int nkv, int hd, int mask, int window, float softcap, float scale,
               cudaStream_t st) {
+#define REPRO_FWD_CASE(HD) \
+  case HD:                 \
+    return launch<T, HD>(q, k, v, o, lse, b, s, t, nh, nkv, mask, window, softcap, scale, st);
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, b, s, t, nh, nkv, mask, window, softcap, scale, st);
-    case 32: return launch<T, 32>(q, k, v, o, b, s, t, nh, nkv, mask, window, softcap, scale, st);
-    case 64: return launch<T, 64>(q, k, v, o, b, s, t, nh, nkv, mask, window, softcap, scale, st);
-    case 128: return launch<T, 128>(q, k, v, o, b, s, t, nh, nkv, mask, window, softcap, scale, st);
-    case 256: return launch<T, 256>(q, k, v, o, b, s, t, nh, nkv, mask, window, softcap, scale, st);
+    REPRO_FWD_CASE(16)
+    REPRO_FWD_CASE(32)
+    REPRO_FWD_CASE(64)
+    REPRO_FWD_CASE(128)
+    REPRO_FWD_CASE(256)
+#undef REPRO_FWD_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o all of it).
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o all of it).  lse, when
+// not null, receives each row's log-sum-exp in base 2 of the scores times
+// log2 e (float32, (b, nh, s)): the softmax's own units, so the backward
+// (flash_attention_bwd.cu) recomputes P as 2^(x - lse).
 extern "C" int repro_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int b, int s, int t,
+    const void* q, const void* k, const void* v, void* o, void* lse, int b, int s, int t,
     int nh, int nkv, int hd, int mask, int window, float softcap, float scale,
     int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (b == 0 || s == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return launch_hd<float>(q, k, v, o, b, s, t, nh, nkv, hd, mask, window, softcap, scale, st);
+    return launch_hd<float>(q, k, v, o, l, b, s, t, nh, nkv, hd, mask, window, softcap, scale, st);
   if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(q, k, v, o, b, s, t, nh, nkv, hd, mask, window, softcap,
+    return launch_hd<__nv_bfloat16>(q, k, v, o, l, b, s, t, nh, nkv, hd, mask, window, softcap,
                                     scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

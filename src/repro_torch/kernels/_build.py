@@ -24,7 +24,7 @@ from typing import List
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parents[1] / "build"
-SOURCES = ("flash_attention.cu", "quantize.cu", "decide.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "quantize.cu", "decide.cu")
 # sm_90a: Hopper with its arch-specific instructions (wgmma, setmaxnreg).
 # Never --use_fast_math: the quantize and decide kernels rely on IEEE
 # division (decide.cu also writes every float64 op as an _rn intrinsic, so
@@ -37,10 +37,14 @@ _c_int = ctypes.c_int
 _c_ll = ctypes.c_longlong
 _c_dbl = ctypes.c_double
 SIGNATURES = {
-    # q, k, v, o, b, s, t, nh, nkv, hd, mask, window, softcap, scale, dtype,
-    # device, stream
-    "repro_flash_attention_fwd": [_c_ptr] * 4 + [_c_int] * 8
+    # q, k, v, o, lse, b, s, t, nh, nkv, hd, mask, window, softcap, scale,
+    # dtype, device, stream
+    "repro_flash_attention_fwd": [_c_ptr] * 5 + [_c_int] * 8
     + [ctypes.c_float, ctypes.c_float, _c_int, _c_int, _c_ptr],
+    # q, k, v, o, lse, do, dq, dk, dv, delta, b, s, t, nh, nkv, hd, mask,
+    # window, softcap, scale, device, stream
+    "repro_flash_attention_bwd": [_c_ptr] * 10 + [_c_int] * 8
+    + [ctypes.c_float, ctypes.c_float, _c_int, _c_ptr],
     # x, q, scale, groups, device, stream
     "repro_quantize_int8_f32": [_c_ptr] * 3 + [_c_ll, _c_int, _c_ptr],
     # q, scale, x, n, device, stream

@@ -20,6 +20,7 @@ from repro_torch.kernels import ref
 _COUNTERS = {
     "flash_attention": (fa.flash_attention_cuda, "launches"),
     "flash_attention_bf16": (fa.flash_attention_cuda, "launches_bf16"),
+    "flash_attention_bwd": (fa.flash_attention_bwd_cuda, "launches"),
     "quantize_int8": (qz.quantize_int8_cuda, "launches"),
     "dequantize_int8": (qz.dequantize_int8_cuda, "launches"),
     "decide_dest": (dc.decide_dest_cuda, "launches"),
@@ -38,8 +39,16 @@ def flash_attention(
     q, k, v, *, mask_kind="causal", window=0, attn_softcap=0.0, qpos=None, kpos=None,
 ):
     """GQA attention.  qpos/kpos are accepted for API parity with the decode
-    path and ignored: train/prefill sequences are dense and left-aligned."""
+    path and ignored: train/prefill sequences are dense and left-aligned.
+
+    On the card, a call that autograd records (grad enabled and an input
+    that requires grad) goes through ``FlashAttentionFn``: K1 forward, the
+    attention-backward kernel backward.  Any other call (prefill, serving,
+    ``no_grad`` / ``inference_mode``) runs K1 alone.  On the CPU, autograd
+    differentiates the plain version."""
     if _on_card(q):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return fa.FlashAttentionFn.apply(q, k, v, mask_kind, window, attn_softcap)
         return fa.flash_attention_cuda(q, k, v, mask_kind=mask_kind, window=window,
                                        attn_softcap=attn_softcap)
     return ref.flash_attention_ref(q, k, v, mask_kind=mask_kind, window=window,

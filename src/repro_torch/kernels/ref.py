@@ -14,6 +14,7 @@ import torch
 from repro_torch.device import ieee_f32
 
 NEG_INF = -2.0e38
+LOG2E = 1.4426950408889634
 
 
 def flash_attention_ref(
@@ -27,12 +28,20 @@ def flash_attention_ref(
 ) -> torch.Tensor:
     """Quadratic GQA attention, f32 softmax, dense left-aligned positions
     (qpos = arange(s), kpos = arange(t))."""
+    b, s, nh, hd = q.shape
+    scores = _scores(q, k, mask_kind, window, attn_softcap)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v)
+    return out.reshape(b, s, nh, hd)
+
+
+def _scores(q, k, mask_kind: str, window: int, attn_softcap: float) -> torch.Tensor:
+    """Masked float32 scores (b, nkv, nh / nkv, s, t) of ``flash_attention_ref``."""
     if q.is_cuda:
         ieee_f32()
     b, s, nh, hd = q.shape
     t, nkv = k.shape[1], k.shape[2]
-    g = nh // nkv
-    qg = q.reshape(b, s, nkv, g, hd)
+    qg = q.reshape(b, s, nkv, nh // nkv, hd)
     scores = torch.einsum("bskgh,btkh->bkgst", qg, k).float() * (hd ** -0.5)
     if attn_softcap:
         scores = attn_softcap * torch.tanh(scores / attn_softcap)
@@ -43,9 +52,32 @@ def flash_attention_ref(
         if mask_kind == "window" and window > 0:
             ok &= (qpos - kpos) < window
         scores = torch.where(ok, scores, torch.full((), NEG_INF, device=q.device))
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgst,btkh->bskgh", probs, v)
-    return out.reshape(b, s, nh, hd)
+    return scores
+
+
+def flash_attention_lse_ref(
+    q: torch.Tensor, k: torch.Tensor, *,
+    mask_kind: str = "causal", window: int = 0, attn_softcap: float = 0.0,
+) -> torch.Tensor:
+    """Each row's log-sum-exp of ``flash_attention_ref``'s scores, in base 2
+    of the scores times log2 e (the units of K1's softmax): (b, nh, s)."""
+    b, s, nh, _ = q.shape
+    lse = torch.logsumexp(_scores(q, k, mask_kind, window, attn_softcap), dim=-1)
+    return (lse * LOG2E).reshape(b, nh, s)
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, *,
+    mask_kind: str = "causal", window: int = 0, attn_softcap: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv): the autograd of ``flash_attention_ref`` at (q, k, v)
+    for the output cotangent ``do`` -- what XLA computes for the JAX
+    package, which differentiates its oracle."""
+    with torch.enable_grad():
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        out = flash_attention_ref(qg, kg, vg, mask_kind=mask_kind, window=window,
+                                  attn_softcap=attn_softcap)
+        return torch.autograd.grad(out, (qg, kg, vg), do)
 
 
 def quantize_int8_ref(x: torch.Tensor, block: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -109,3 +109,13 @@ def apply_unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if table.shape[0] == x.shape[-1]:
         return x @ table
     return x @ table.T
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token-level cross entropy in f32. labels < 0 are masked."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    nll = logz - gold
+    mask = (labels >= 0).float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

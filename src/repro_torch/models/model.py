@@ -1,5 +1,5 @@
 """Model façade (port of ``repro/models/model.py``): ``build_model(cfg)``
-gives a ``Model`` with init / forward / decode_step / init_cache.
+gives a ``Model`` with init / loss / forward / decode_step / init_cache.
 
 ``Model`` is a ``torch.nn.Module`` that holds no parameters: like the JAX
 package it takes the param tree as an argument, so one tree serves both
@@ -28,6 +28,11 @@ class Model(torch.nn.Module):
         placed on ``device`` (default: the card)."""
         gen = generator if generator is not None else torch.Generator().manual_seed(seed)
         return tfm.init_lm(gen, self.cfg, resolve(device))
+
+    def loss(self, params: dict, batch: dict, *, remat_policy: str = "full"):
+        """(loss, {"ce", "aux"}) for batch = {'tokens', 'labels'}, with
+        autograd on: the training path."""
+        return tfm.lm_loss(params, batch, self.cfg, remat_policy=remat_policy)
 
     @torch.inference_mode()
     def forward(self, params: dict, batch: dict):

@@ -3,13 +3,18 @@
 Only the dense ``("attn",)`` block pattern is ported.  The layer stack is
 ``num_groups`` repetitions of ``cfg.block_pattern`` with group params
 stacked on a leading dim, as in the JAX package, so the param tree and its
-checkpoint paths match; the JAX ``lax.scan`` over groups is a Python loop.
+checkpoint paths match; the JAX ``lax.scan`` over groups is a Python loop,
+and gradients reach the stacked leaves through the per-group indexing.
+Rematerialization (``remat_policy``) wraps each group as ``_remat`` does
+in the JAX package.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
@@ -18,11 +23,45 @@ from repro_torch.models.layers import (
     apply_mlp,
     apply_norm,
     apply_unembed,
+    cross_entropy,
     init_embed,
     init_mlp,
     init_norm,
     softcap,
 )
+
+
+REMAT_POLICIES = ("none", "full", "dots")
+# "dots": the matmul outputs are saved, everything else is recomputed.
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op in _DOT_OPS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    """``fn`` under activation checkpointing: "none" saves everything,
+    "full" saves only the inputs (the whole group reruns in the backward
+    pass), "dots" saves the matmul outputs (selective checkpointing).
+    Without autograd recording there is nothing to save and ``fn`` runs as
+    it is."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {policy!r} not in {REMAT_POLICIES}")
+    if policy == "none":
+        return fn
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts, _save_dots)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -137,7 +176,8 @@ def embed_inputs(params, cfg: ModelConfig, batch: dict):
     return x
 
 
-def lm_forward(params: dict, batch: dict, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def lm_forward(params: dict, batch: dict, cfg: ModelConfig, *,
+               remat_policy: str = "full") -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (b, s, vocab), aux_loss)."""
     check_ported(cfg)
     x = embed_inputs(params, cfg, batch)
@@ -145,13 +185,27 @@ def lm_forward(params: dict, batch: dict, cfg: ModelConfig) -> Tuple[torch.Tenso
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
-    for g in range(cfg.num_groups):
-        gp = _index(params["groups"], g)
+
+    def group_fn(x, gp):
         for i in range(len(cfg.block_pattern)):
             x = apply_block(gp[f"b{i}"], x, cfg, positions)
+        return x
+
+    body = _remat(group_fn, remat_policy)
+    for g in range(cfg.num_groups):
+        x = body(x, _index(params["groups"], g))
     x = apply_norm(params["final_norm"], x, cfg.norm_type)
     logits = softcap(apply_unembed(_unembed_table(params, cfg), x), cfg.logit_softcap)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def lm_loss(params: dict, batch: dict, cfg: ModelConfig, *, remat_policy: str = "full"):
+    """(loss, {"ce", "aux"}) for batch = {'tokens', 'labels'}; the dense
+    model's aux is 0."""
+    logits, aux = lm_forward(params, batch, cfg, remat_policy=remat_policy)
+    ce = cross_entropy(logits, batch["labels"])
+    loss = ce + cfg.router_aux_coef * aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

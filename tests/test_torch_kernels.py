@@ -98,7 +98,8 @@ def test_ops_on_cpu_take_plain_path_and_count_nothing():
     qv, sv = ops.quantize_int8(x)
     ops.dequantize_int8(qv, sv)
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bf16": 0,
-                                   "quantize_int8": 0, "dequantize_int8": 0, "decide_dest": 0}
+                                   "flash_attention_bwd": 0, "quantize_int8": 0,
+                                   "dequantize_int8": 0, "decide_dest": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -114,5 +115,6 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         dequantize_int8_cuda(torch.zeros(256, dtype=torch.int8), torch.ones(1))
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bf16": 0,
-                                   "quantize_int8": 0, "dequantize_int8": 0, "decide_dest": 0}
+                                   "flash_attention_bwd": 0, "quantize_int8": 0,
+                                   "dequantize_int8": 0, "decide_dest": 0}
 

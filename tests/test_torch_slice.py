@@ -55,7 +55,8 @@ def test_serving_slice_matches_reference(tmp_path):
     res = chip_smoke.run_slice(cfg, params, torch.from_numpy(prompts).long(), str(tmp_path / "torch"),
                                max_new=NEW, device="cpu")
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bf16": 0,
-                                   "quantize_int8": 0, "dequantize_int8": 0, "decide_dest": 0}
+                                   "flash_attention_bwd": 0, "quantize_int8": 0,
+                                   "dequantize_int8": 0, "decide_dest": 0}
 
     np.testing.assert_allclose(res.logits_a.numpy(), np.asarray(jlogits_a), atol=TOL, rtol=TOL)
     np.testing.assert_array_equal(res.tokens_a.numpy(), np.asarray(jtokens_a))
@@ -92,7 +93,8 @@ def test_bf16_prefill_matches_reference():
     logits, _ = chip_smoke.run_bf16_prefill(cfg, params, torch.from_numpy(prompts).long(),
                                             device="cpu")
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bf16": 0,
-                                   "quantize_int8": 0, "dequantize_int8": 0, "decide_dest": 0}
+                                   "flash_attention_bwd": 0, "quantize_int8": 0,
+                                   "dequantize_int8": 0, "decide_dest": 0}
     assert logits.dtype == torch.bfloat16
     want = np.asarray(jlogits.astype(jnp.float32))
     np.testing.assert_allclose(logits.float().numpy(), want, atol=chip_smoke.MODEL_BF16_TOL,
