@@ -33,9 +33,11 @@ Phases, each of which raises on failure:
   7. profile -- device busy share and top kernels of prefill and decode,
                 and of a profiled rerun of each fleet path;
   8. train   -- the training slice at micro-lm's full width: the attention
-                backward kernel against its plain version (and timed);
-                two train steps on the card against the same two through
-                device="cpu"; the job lifecycle through Trainer (site A
+                backward kernel against its plain version in float32 and
+                in bf16 (and timed); two train steps on the card against
+                the same two through device="cpu"; one train step of
+                micro-lm in bf16 on the card against the same step through
+                device="cpu", counted; the job lifecycle through Trainer (site A
                 trains to step 12 with a checkpoint every 4 steps, is
                 preempted, the gate reads the measured bytes, migrate_job,
                 site B restores onto the card and trains to step 24) in full
@@ -146,8 +148,8 @@ FLASH_BF16_CASES = [
 ]
 RAGGED_GROUPS = (1, 3, 100, 1001)
 
-# The attention backward (float32 only): K1's float32 shapes and, in
-# float32, its bf16 SWEEP shapes.
+# The attention backward in float32: K1's float32 shapes and, in float32,
+# its bf16 SWEEP shapes.  In bf16: FLASH_BF16_CASES.
 FLASH_BWD_CASES = FLASH_CASES + FLASH_BF16_CASES[:2]
 # Attention backward vs its plain version (the autograd of the plain
 # forward), both float32 on the card, as a share of the largest |gradient|
@@ -159,6 +161,11 @@ FLASH_BWD_CASES = FLASH_CASES + FLASH_BF16_CASES[:2]
 # kernel's sums and stays far below any real fault (a wrong mask or softcap
 # term moves a gradient by its own size).
 GRAD_TOL = 1e-4
+# bf16 backward vs the bf16 plain version, as a share of the largest
+# |gradient|: FLASH_BF16_TOL's reason (the plain version rounds scores, dP
+# and the products to bf16, the kernel keeps S and dP in float32; both
+# round P and dS to bf16 before the products and write bf16 gradients).
+GRAD_BF16_TOL = FLASH_BF16_TOL
 # lse from K1 vs the plain log-sum-exp (base 2): K1's 3xTF32 scores, its
 # 2^x and its running max and sum; 1e-5 as K1's own output.
 LSE_TOL = 1e-5
@@ -190,6 +197,13 @@ CARD_CPU_BATCH = 2
 CARD_CPU_LOSS_TOL = (1e-5, 1e-4)
 CARD_CPU_GNORM_TOL = (1e-5, 1e-4)
 CARD_CPU_GRAD_TOL = 1e-4
+# micro-lm in bf16, one step on 2 x 512 tokens, card against CPU: bf16
+# weights, activations and attention on both sides, rounded in different
+# places (each bf16 rounding 2^-9 relative) and summed in different orders
+# over 8 layers: the repo's bf16 tolerance (tests/test_kernels.py SWEEP),
+# relative for the loss and the grad norm, and per gradient leaf as a share
+# of its largest element.
+CARD_CPU_BF16_TOL = 2e-2
 # Migrated (full checkpoint) vs unmigrated final params: the restore is
 # exact and the card runs the same kernels on the same inputs, so equal;
 # 1e-6 as tests/test_system.py::test_full_migration_cycle.
@@ -214,6 +228,9 @@ KERNELS = {
     # no TPU kernel: the JAX package trains through XLA's autodiff of
     # flash_attention_ref (src/repro/train/train_step.py:33)
     "flash_attention_bwd": dict(
+        route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/ref.py:17"),
+    "flash_attention_bwd_bf16": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu",
         replaces="src/repro/kernels/ref.py:17"),
 }
@@ -391,29 +408,37 @@ def saves_in(start: int, stop: int, save_every: int) -> int:
     return sum(1 for st in range(start + 1, stop + 1) if st % save_every == 0) + 1
 
 
+def step_launches(cfg, remat_policy: str) -> dict:
+    """K1 and backward launches of one train step, from the code: K1 once
+    per attention layer in the forward and once more in remat's recompute
+    (its custom Function is no matmul, so "dots" reruns it too), the
+    backward kernel once per layer; counted under the model's type."""
+    layers = cfg.num_groups * sum(kind == "attn" for kind in cfg.block_pattern)
+    k1 = layers * (1 if remat_policy == "none" else 2)
+    tag = "_bf16" if cfg.dtype == "bfloat16" else ""
+    out = dict.fromkeys(ops.launch_counts(), 0)
+    out.update({f"flash_attention{tag}": k1, f"flash_attention_bwd{tag}": layers})
+    return out
+
+
 def train_launches(cfg, trainer: Trainer, *, steps: int, saves: int = 0,
                    restores: int = 0) -> dict:
     """The launches a stretch of the training path makes, from the code:
-    per step, K1 once per attention layer in the forward and once more in
-    remat's recompute (its custom Function is no matmul, so "dots" reruns
-    it too), the backward kernel once per layer, and under grad_compress
-    K2 and K3 once per float grad leaf of at least one 256-element block;
-    per int8 save K2, per int8 restore K3, once per float leaf of the state
-    (params, master, m, v)."""
-    layers = cfg.num_groups * sum(kind == "attn" for kind in cfg.block_pattern)
+    per step ``step_launches``, and under grad_compress K2 and K3 once per
+    float grad leaf of at least one 256-element block; per int8 save K2,
+    per int8 restore K3, once per float leaf of the state (params, master,
+    m, v)."""
     sc = trainer.cfg.step_cfg
-    k1 = layers * (1 if sc.remat_policy == "none" else 2)
     state_leaves = sum(1 for _, x in flatten_with_paths(trainer.state_tree())
                        if isinstance(x, torch.Tensor) and x.is_floating_point())
     grad_leaves = sum(1 for _, x in flatten_with_paths(trainer.params)
                       if x.is_floating_point() and x.numel() >= 256)
     gc = grad_leaves * steps if sc.grad_compress else 0
     int8 = trainer.cfg.ckpt_mode != "full"
-    return {"flash_attention": k1 * steps, "flash_attention_bf16": 0,
-            "flash_attention_bwd": layers * steps,
-            "quantize_int8": gc + (state_leaves * saves if int8 else 0),
-            "dequantize_int8": gc + (state_leaves * restores if int8 else 0),
-            "decide_dest": 0}
+    out = {k: v * steps for k, v in step_launches(cfg, sc.remat_policy).items()}
+    out.update(quantize_int8=gc + (state_leaves * saves if int8 else 0),
+               dequantize_int8=gc + (state_leaves * restores if int8 else 0))
+    return out
 
 
 @dataclass
@@ -502,7 +527,9 @@ def run_train_lifecycle(cfg, workdir, *, mode, grad_compress, device, batch=TRAI
 
 def run_train_steps(cfg, params, batches, *, device):
     """The first batch's gradients, then one train step per batch, from
-    ``params`` copied to ``device``.  Returns (grads, [metrics per step])."""
+    ``params`` copied to ``device``, with the launch counters set to 0 just
+    before the steps and read just after.  Returns (grads, [metrics per
+    step], launches)."""
     dev = resolve(device)
     model = build_model(cfg)
     p = tree_map(lambda x: x.detach().to(dev, copy=True), params)
@@ -513,10 +540,11 @@ def run_train_steps(cfg, params, batches, *, device):
     step = make_train_step(model, step_cfg)
     opt = init_opt_state(p)
     metrics = []
+    ops.reset_launch_counts()
     for batch in batches:
         p, opt, m = step(p, opt, batch)
         metrics.append({k: float(v) for k, v in m.items()})
-    return grads, metrics
+    return grads, metrics, ops.launch_counts()
 
 
 # ---------------------------------------------------------------------------
@@ -842,67 +870,87 @@ def check_flash(dev, gen):
     return out
 
 
-def check_flash_bwd(dev, gen) -> dict:
-    """The attention backward (with K1's lse) against its plain version on
-    FLASH_BWD_CASES, then timed at the training slice's shape beside the
-    plain version's and SDPA's backward (each a forward plus backward, minus
-    that forward) and its bound."""
+def _check_bwd_cases(dev, gen, cases, dtype, tol) -> tuple:
+    """The attention backward (with K1's lse) in ``dtype`` against its plain
+    version in ``dtype`` on ``cases``, each gradient within ``tol`` of its
+    largest element; float32 also holds K1's lse to the plain log-sum-exp.
+    Returns (max abs err, largest share of the tolerance, max lse err)."""
     worst, worst_share, worst_lse = 0.0, 0.0, 0.0
-    for b, s, t, nh, nkv, hd, mask, win, cap in FLASH_BWD_CASES:
-        q, do = (randn(gen, (b, s, nh, hd), dev) for _ in range(2))
-        k, v = (randn(gen, (b, t, nkv, hd), dev) for _ in range(2))
+    for b, s, t, nh, nkv, hd, mask, win, cap in cases:
+        q, do = (randn(gen, (b, s, nh, hd), dev).to(dtype) for _ in range(2))
+        k, v = (randn(gen, (b, t, nkv, hd), dev).to(dtype) for _ in range(2))
         kw = dict(mask_kind=mask, window=win, attn_softcap=cap)
         o, lse = flash_attention_lse_cuda(q, k, v, **kw)
         got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
         want = ref.flash_attention_bwd_ref(q, k, v, do, **kw)
-        lse_err = float((lse - ref.flash_attention_lse_ref(q, k, **kw)).abs().max())
         torch.cuda.synchronize()
         shape = (b, s, t, nh, nkv, hd, mask, win, cap)
-        if not lse_err <= LSE_TOL:
-            raise RuntimeError(f"flash_attention lse {shape}: max abs err {lse_err} beyond {LSE_TOL}")
+        if dtype == torch.float32:
+            lse_err = float((lse - ref.flash_attention_lse_ref(q, k, **kw)).abs().max())
+            if not lse_err <= LSE_TOL:
+                raise RuntimeError(f"flash_attention lse {shape}: max abs err {lse_err} beyond {LSE_TOL}")
+            worst_lse = max(worst_lse, lse_err)
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            if g.dtype != dtype:
+                raise RuntimeError(f"flash_attention_bwd {name} {shape}: {g.dtype}, expected {dtype}")
+            g, w = g.float(), w.float()
             err = float((g - w).abs().max())
-            share = err / (GRAD_TOL * float(w.abs().max()))
+            share = err / (tol * float(w.abs().max()))
             if not share <= 1.0:
-                raise RuntimeError(f"flash_attention_bwd {name} {shape}: max abs err {err}, "
-                                   f"{100 * share:.1f}% of {GRAD_TOL} x max|{name}|")
+                raise RuntimeError(f"flash_attention_bwd {dtype} {name} {shape}: max abs err {err}, "
+                                   f"{100 * share:.1f}% of {tol} x max|{name}|")
             worst, worst_share = max(worst, err), max(worst_share, share)
-        worst_lse = max(worst_lse, lse_err)
-    qb = randn(gen, (1, 64, 2, 64), dev).to(torch.bfloat16)
-    try:
-        flash_attention_bwd_cuda(qb, qb, qb, qb, torch.zeros(1, 2, 64, device=dev), qb)
-    except NotImplementedError:
-        pass
-    else:
-        raise RuntimeError("flash_attention_bwd took bf16 inputs")
-    log(f"[kernels] flash_attention_bwd: {len(FLASH_BWD_CASES)} shapes, dQ / dK / dV within "
+    return worst, worst_share, worst_lse
+
+
+def check_flash_bwd(dev, gen) -> dict:
+    """The attention backward against its plain version, float32 on
+    FLASH_BWD_CASES and bf16 on FLASH_BF16_CASES, then both timed at the
+    training slice's shape beside the plain version's and SDPA's backward in
+    the same type (each a forward plus backward, minus that forward) and
+    the bound: float32 on operations at the 3xTF32 rate, bf16 the larger
+    of its operations at the bf16 rate and its bytes."""
+    worst, share, worst_lse = _check_bwd_cases(dev, gen, FLASH_BWD_CASES, torch.float32, GRAD_TOL)
+    log(f"[kernels] flash_attention_bwd float32: {len(FLASH_BWD_CASES)} shapes, dQ / dK / dV within "
         f"{GRAD_TOL} x max|grad| of the plain version (max abs err {worst:.3e}, at most "
-        f"{100 * worst_share:.1f}% of the tolerance); K1's lse within {LSE_TOL} (max abs err "
-        f"{worst_lse:.3e}); bf16 raises NotImplementedError")
+        f"{100 * share:.1f}% of the tolerance); K1's lse within {LSE_TOL} (max abs err "
+        f"{worst_lse:.3e})")
+    worst16, share16, _ = _check_bwd_cases(dev, gen, FLASH_BF16_CASES, torch.bfloat16, GRAD_BF16_TOL)
+    log(f"[kernels] flash_attention_bwd bf16: {len(FLASH_BF16_CASES)} shapes, dQ / dK / dV within "
+        f"{GRAD_BF16_TOL} x max|grad| of the bf16 plain version (max abs err {worst16:.3e}, at "
+        f"most {100 * share16:.1f}% of the tolerance)")
 
     b, s, nh, hd = BATCH, PROMPT, 6, 64
-    q, k, v, do = (randn(gen, (b, s, nh, hd), dev) for _ in range(4))
-    o, lse = flash_attention_lse_cuda(q, k, v)
-    ms = time_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do))
-    plain_fwd = time_ms(lambda: ref.flash_attention_ref(q, k, v))
-    plain = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, do)) - plain_fwd
-    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
-    qt, kt, vt = (x.requires_grad_(True) for x in (qt, kt, vt))
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
-    lib_fwd = time_ms(lambda: sdpa().detach())
-    lib = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot)) - lib_fwd
     pairs = b * nh * s * (s + 1) // 2  # causal (q, k) pairs this input needs
     flops = BWD_FLOPS_PER_PAIR_HD * hd * pairs
-    nbytes = 4 * (8 * q.numel() + lse.numel())  # q k v o do in, dq dk dv out, lse in
-    b_ms, b_by = bound(nbytes, TF32_SPLIT * flops, TF32_FLOPS)
-    core_ms, _ = bound(nbytes, flops, F32_FLOPS)
-    log(f"[kernels] flash_attention_bwd at ({b}, {s}, {nh}, {hd}) causal: {ms:.4f} ms; plain "
-        f"{plain:.4f} ms, SDPA backward {lib:.4f} ms (each its forward+backward minus its forward: "
-        f"{plain_fwd:.4f} / {lib_fwd:.4f} ms); bound {b_ms:.4f} ms at the 3xTF32 rate ({b_by}), "
-        f"{core_ms:.4f} ms at the CUDA-core float32 rate; {100 * b_ms / ms:.1f}% / "
-        f"{100 * core_ms / ms:.1f}% of them")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                bound_by=b_by)
+    out = {}
+    for name, dtype, err, peak, split in (
+            ("flash_attention_bwd", torch.float32, worst, TF32_FLOPS, TF32_SPLIT),
+            ("flash_attention_bwd_bf16", torch.bfloat16, worst16, BF16_FLOPS, 1)):
+        q, k, v, do = (randn(gen, (b, s, nh, hd), dev).to(dtype) for _ in range(4))
+        o, lse = flash_attention_lse_cuda(q, k, v)
+        ms = time_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do))
+        plain_fwd = time_ms(lambda: ref.flash_attention_ref(q, k, v))
+        plain = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, do)) - plain_fwd
+        qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+        qt, kt, vt = (x.requires_grad_(True) for x in (qt, kt, vt))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+        lib_fwd = time_ms(lambda: sdpa().detach())
+        lib = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot)) - lib_fwd
+        # q k v o do in, dq dk dv out, lse in
+        nbytes = 8 * q.numel() * q.element_size() + 4 * lse.numel()
+        b_ms, b_by = bound(nbytes, split * flops, peak)
+        core = ""
+        if dtype == torch.float32:
+            core_ms, _ = bound(nbytes, flops, F32_FLOPS)
+            core = f"; {core_ms:.4f} ms at the CUDA-core float32 rate ({100 * core_ms / ms:.1f}%)"
+        log(f"[kernels] {name} at ({b}, {s}, {nh}, {hd}) causal: {ms:.4f} ms; plain {plain:.4f} ms, "
+            f"SDPA backward {lib:.4f} ms (each its forward+backward minus its forward: "
+            f"{plain_fwd:.4f} / {lib_fwd:.4f} ms); bound {b_ms:.4f} ms ({b_by}), "
+            f"{100 * b_ms / ms:.1f}% of it{core}")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                         bound_by=b_by)
+    return out
 
 
 def _ragged_inputs(gen, dev):
@@ -1155,9 +1203,12 @@ def check_card_vs_cpu(cfg, params, dev) -> None:
     data = SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, CARD_CPU_BATCH)
     batches = [data.batch(i) for i in range(2)]
     t0 = time.perf_counter()
-    g_cpu, m_cpu = run_train_steps(cfg, params, batches, device="cpu")
+    g_cpu, m_cpu, _ = run_train_steps(cfg, params, batches, device="cpu")
     cpu_s = time.perf_counter() - t0
-    g_card, m_card = run_train_steps(cfg, params, batches, device=dev)
+    g_card, m_card, counts = run_train_steps(cfg, params, batches, device=dev)
+    expect = {k: v * len(batches) for k, v in step_launches(cfg, "full").items()}
+    if counts != expect:
+        raise RuntimeError(f"train steps: launch counts {counts}, expected {expect}")
     parts = []
     for i, (mc, mk) in enumerate(zip(m_cpu, m_card)):
         for key, tol in (("loss", CARD_CPU_LOSS_TOL[i]), ("grad_norm", CARD_CPU_GNORM_TOL[i])):
@@ -1178,6 +1229,47 @@ def check_card_vs_cpu(cfg, params, dev) -> None:
     log(f"[train] card vs device='cpu', {CARD_CPU_BATCH} x {TRAIN_SEQ} tokens, 2 steps (CPU "
         f"{cpu_s:.1f} s): {'; '.join(parts)}; first-step gradients within {CARD_CPU_GRAD_TOL} x "
         f"each leaf's max, at most {100 * worst:.2f}% of it")
+
+
+def check_bf16_train(cfg, params, dev) -> dict:
+    """One step of micro-lm in bf16 (the type every other assigned
+    architecture trains in: K1 and its backward in bf16), its weights cast
+    to bf16, on the card against the same step through device="cpu": loss,
+    grad norm and the first step's gradients; the step's launches exactly
+    as derived.  Returns them."""
+    cfg16 = replace(cfg, dtype="bfloat16")
+    p16 = tree_map(lambda x: x.to(torch.bfloat16), params)
+    batches = [SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, CARD_CPU_BATCH).batch(0)]
+    t0 = time.perf_counter()
+    g_cpu, (m_cpu,), _ = run_train_steps(cfg16, p16, batches, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    g_card, (m_card,), counts = run_train_steps(cfg16, p16, batches, device=dev)
+    expect = step_launches(cfg16, "full")
+    if counts != expect:
+        raise RuntimeError(f"bf16 train step: launch counts {counts}, expected {expect}")
+    parts = []
+    for key in ("loss", "grad_norm"):
+        rel = abs(m_card[key] - m_cpu[key]) / abs(m_cpu[key])
+        if not rel <= CARD_CPU_BF16_TOL:
+            raise RuntimeError(f"bf16 step {key} on the card {m_card[key]} vs the CPU {m_cpu[key]}: "
+                               f"relative {rel:.3e} beyond {CARD_CPU_BF16_TOL}")
+        parts.append(f"{key} {m_card[key]:.6f} (rel {rel:.2e})")
+    cpu_of = dict(flatten_with_paths(g_cpu))
+    worst = 0.0
+    for path, g in flatten_with_paths(g_card):
+        want = cpu_of[path].float()
+        if g.dtype != torch.bfloat16 or not bool(torch.isfinite(g).all()):
+            raise RuntimeError(f"bf16 gradient {'/'.join(path)}: {g.dtype} or not finite")
+        share = float((g.float().cpu() - want).abs().max()) / (CARD_CPU_BF16_TOL * float(want.abs().max()))
+        if not share <= 1.0:
+            raise RuntimeError(f"bf16 first-step gradient {'/'.join(path)} on the card vs the CPU: "
+                               f"{100 * share:.1f}% of {CARD_CPU_BF16_TOL} x its max")
+        worst = max(worst, share)
+    log(f"[train] micro-lm in bf16, card vs device='cpu', one step on {CARD_CPU_BATCH} x "
+        f"{TRAIN_SEQ} tokens (CPU {cpu_s:.1f} s): {'; '.join(parts)}; first-step gradients within "
+        f"{CARD_CPU_BF16_TOL} x each leaf's max, at most {100 * worst:.1f}% of it (tol "
+        f"{CARD_CPU_BF16_TOL}); launches {counts}, as derived")
+    return counts
 
 
 def check_train_lifecycle(res: TrainResult) -> dict:
@@ -1305,7 +1397,7 @@ def phase_train(cfg, params, dev) -> dict:
     """The training slice on the card.  Returns the launches of its counted
     runs, summed."""
     check_card_vs_cpu(cfg, params, dev)
-    total = {}
+    total = check_bf16_train(cfg, params, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
         for mode, gc, reference in (("full", False, True), ("int8", True, False)):
             d = os.path.join(work, mode)
@@ -1333,7 +1425,7 @@ def main() -> int:
     n_params = sum(x.numel() for _, x in flatten_with_paths(params))
     leaves = [x for _, x in flatten_with_paths(params)]
     stats = check_flash(dev, gen)
-    stats["flash_attention_bwd"] = check_flash_bwd(dev, gen)
+    stats.update(check_flash_bwd(dev, gen))
     stats["quantize_int8"], stats["dequantize_int8"] = check_quantize(dev, gen, leaves)
     cpu, captured = run_cpu_paths()
     stats["decide_dest"] = check_decide(dev, captured)
@@ -1384,9 +1476,10 @@ def main() -> int:
     phase_profile_fleet(dev)
     phase_host_split(dev)
     train = phase_train(cfg, params, dev)
-    for name in ("flash_attention", "quantize_int8", "dequantize_int8"):
+    for name in ("flash_attention", "flash_attention_bf16", "quantize_int8", "dequantize_int8"):
         launches[name] += train[name]
-    launches["flash_attention_bwd"] = train["flash_attention_bwd"]
+    for name in ("flash_attention_bwd", "flash_attention_bwd_bf16"):
+        launches[name] = train[name]
     log(f"[train] launches of the training runs {train}; all counted paths {launches}")
 
     rows = []

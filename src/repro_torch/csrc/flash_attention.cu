@@ -74,15 +74,15 @@
 //   type  hd   kBk  Q in   smem      registers  spills (stores / loads)
 //   f32   16   64   regs    25.6 KB  128        0
 //   f32   32   64   regs    46.1 KB  167        0
-//   f32   64   64   regs    87.0 KB  236        0
-//   f32   128  32   smem   101.4 KB  239        0
-//   f32   256  32   smem   199.7 KB  255        12 B / 20 B
+//   f32   64   64   regs    87.0 KB  240        0
+//   f32   128  32   smem   101.4 KB  246        0
+//   f32   256  32   smem   199.7 KB  255        4 B / 12 B
 //   bf16  16   64   regs    15.4 KB   96        0
 //   bf16  32   64   regs    25.6 KB  111        0
 //   bf16  64   64   regs    46.1 KB  142        0
 //   bf16  128  64   regs    87.0 KB  183        0
-//   bf16  256  32   smem   101.4 KB  237        0
-// At hd 64, 236 registers and 87 KB allow two blocks (8 warps) an SM;
+//   bf16  256  32   smem   101.4 KB  241        0
+// At hd 64, 240 registers and 87 KB allow two blocks (8 warps) an SM;
 // capping registers to fit more blocks makes ptxas spill.
 // Shared memory exceeds the 48 KB default for most of them, so each launch
 // opts in with cudaFuncSetAttribute.
@@ -90,19 +90,20 @@
 // The entry returns cudaGetLastError() after its launch; the Python wrapper
 // raises if it is not 0.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
+
 #include <type_traits>
 
+#include "flash_common.cuh"
+
 namespace {
+
+using namespace flash;
 
 constexpr int kWarps = 4;
 constexpr int kBq = 16 * kWarps;  // query rows per block
 constexpr int kThreads = 32 * kWarps;
 constexpr float kNegInf = -2.0e38f;
-
-enum MaskKind { kFull = 0, kCausal = 1, kWindow = 2 };
 
 template <typename T, int HD>
 struct Cfg {
@@ -113,103 +114,8 @@ struct Cfg {
   static constexpr int kPvGroup = HD == 256 ? 4 : HD / 8 < 8 ? HD / 8 : 8;
   static constexpr int kVec = 16 / sizeof(T);     // elements per 16-byte copy
   static constexpr int kStride = HD + kVec;       // shared row, padded by 16 B
-  static constexpr int kVecsPerRow = HD / kVec;
   static constexpr size_t kBytes = sizeof(T) * kStride * (kBq + 4 * kBk);
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled when !valid (src is then not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8 x 16-byte matrices; lane i gives the row address of matrix i / 8.
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 3xTF32 split of x: hi = tf32(x), lo = tf32(x - hi), round to nearest,
-// ties away from zero: what cvt.rna.tf32.f32 computes, in two integer
-// operations (add half of the 13 dropped bits' range to the magnitude,
-// clear them).
-__device__ __forceinline__ unsigned to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-template <int N>
-__device__ __forceinline__ void split_bits(const unsigned (&x)[N], unsigned (&hi)[N],
-                                           unsigned (&lo)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) split(__uint_as_float(x[i]), hi[i], lo[i]);
-}
-
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x in one MUFU instruction; results below 2^-126 flush to 0, which
-// drops nothing from a softmax whose largest term is 1.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// Rows row0 .. row0 + nrows of src (row r at src + r * row_stride) into a
-// padded shared tile; rows at or past limit are zero-filled.
-template <typename T, int HD>
-__device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src, int row0, int nrows,
-                                          int limit, long long row_stride, int tid) {
-  using C = Cfg<T, HD>;
-  for (int idx = tid; idx < nrows * C::kVecsPerRow; idx += kThreads) {
-    const int r = idx / C::kVecsPerRow, c = (idx % C::kVecsPerRow) * C::kVec;
-    const bool ok = row0 + r < limit;
-    const T* g = ok ? src + (long long)(row0 + r) * row_stride + c : src;
-    cp_async16(dst + r * C::kStride + c, g, ok);
-  }
-}
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
@@ -251,11 +157,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int kt0 = k_lo / kBk;
   const int n_tiles = k_hi > kt0 * kBk ? (k_hi - kt0 * kBk + kBk - 1) / kBk : 0;
 
-  load_rows<T, HD>(qs, q + ((long long)b * s * nh + h) * HD, q0, kBq, s, (long long)nh * HD, tid);
+  load_rows<T, HD, kThreads>(qs, q + ((long long)b * s * nh + h) * HD, q0, kBq, s, (long long)nh * HD, tid);
   cp_async_commit();
   if (n_tiles > 0) {
-    load_rows<T, HD>(ks, kb, kt0 * kBk, kBk, t, kv_rs, tid);
-    load_rows<T, HD>(vs, vb, kt0 * kBk, kBk, t, kv_rs, tid);
+    load_rows<T, HD, kThreads>(ks, kb, kt0 * kBk, kBk, t, kv_rs, tid);
+    load_rows<T, HD, kThreads>(vs, vb, kt0 * kBk, kBk, t, kv_rs, tid);
   }
   cp_async_commit();
   cp_async_wait<1>();  // the q tile has landed
@@ -292,8 +198,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int k0 = (kt0 + it) * kBk;
     const int buf = it & 1;
     if (it + 1 < n_tiles) {
-      load_rows<T, HD>(ks + (buf ^ 1) * kBk * kS, kb, k0 + kBk, kBk, t, kv_rs, tid);
-      load_rows<T, HD>(vs + (buf ^ 1) * kBk * kS, vb, k0 + kBk, kBk, t, kv_rs, tid);
+      load_rows<T, HD, kThreads>(ks + (buf ^ 1) * kBk * kS, kb, k0 + kBk, kBk, t, kv_rs, tid);
+      load_rows<T, HD, kThreads>(vs + (buf ^ 1) * kBk * kS, vb, k0 + kBk, kBk, t, kv_rs, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();  // tile it has landed; tile it + 1 may be in flight

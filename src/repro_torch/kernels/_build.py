@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels into one shared library and load it.
 
 The sources are ``csrc/*.cu`` in this package, each with a plain C
-interface (no PyTorch headers), so each compiles in seconds.  The library
-goes to ``build/`` at the repository root, named by a hash of the sources
-and flags: a changed source gives a new name, hence a rebuild.  All
+interface (no PyTorch headers), so each compiles in seconds; the two flash
+attention sources share ``csrc/flash_common.cuh``.  The library goes to
+``build/`` at the repository root, named by a hash of the sources, the
+header and the flags: a changed source gives a new name, hence a rebuild.  All
 sources compile in parallel (one ``nvcc`` each), then link once.  The
 build runs on first use, never at import, and only on a machine with
 ``nvcc``; the CPU path never reaches it.
@@ -25,6 +26,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parents[1] / "build"
 SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "quantize.cu", "decide.cu")
+HEADERS = ("flash_common.cuh",)
 # sm_90a: Hopper with its arch-specific instructions (wgmma, setmaxnreg).
 # Never --use_fast_math: the quantize and decide kernels rely on IEEE
 # division (decide.cu also writes every float64 op as an _rn intrinsic, so
@@ -42,9 +44,9 @@ SIGNATURES = {
     "repro_flash_attention_fwd": [_c_ptr] * 5 + [_c_int] * 8
     + [ctypes.c_float, ctypes.c_float, _c_int, _c_int, _c_ptr],
     # q, k, v, o, lse, do, dq, dk, dv, delta, b, s, t, nh, nkv, hd, mask,
-    # window, softcap, scale, device, stream
+    # window, softcap, scale, dtype, device, stream
     "repro_flash_attention_bwd": [_c_ptr] * 10 + [_c_int] * 8
-    + [ctypes.c_float, ctypes.c_float, _c_int, _c_ptr],
+    + [ctypes.c_float, ctypes.c_float, _c_int, _c_int, _c_ptr],
     # x, q, scale, groups, device, stream
     "repro_quantize_int8_f32": [_c_ptr] * 3 + [_c_ll, _c_int, _c_ptr],
     # q, scale, x, n, device, stream
@@ -70,7 +72,7 @@ def find_nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return BUILD_DIR / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"

@@ -13,8 +13,11 @@ bfloat16 in ``flash_attention_cuda.launches_bf16``.
 The backward has no TPU counterpart: the JAX package differentiates
 ``flash_attention_ref`` with XLA.  Its plain version is
 ``kernels/ref.py::flash_attention_bwd_ref`` (the autograd of
-``flash_attention_ref``).  It takes float32 only; one call counts one
-launch in ``flash_attention_bwd_cuda.launches``.
+``flash_attention_ref``).  It takes the forward's types, float32 (3xTF32)
+or bfloat16 (gradients in bfloat16); one call counts one launch, float32 in
+``flash_attention_bwd_cuda.launches``, bfloat16 in
+``flash_attention_bwd_cuda.launches_bf16``.  So ``FlashAttentionFn``
+trains float32 and bfloat16 models on the card.
 """
 from __future__ import annotations
 
@@ -100,11 +103,10 @@ def flash_attention_bwd_cuda(
     do: torch.Tensor, *, mask_kind: str = "causal", window: int = 0, attn_softcap: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of K1 at (q, k, v) for the output cotangent ``do``,
-    given K1's output ``o`` and ``lse`` (``flash_attention_lse_cuda``)."""
+    given K1's output ``o`` and ``lse`` (``flash_attention_lse_cuda``).
+    q, k, v, o and do are all float32 or all bfloat16 (the gradients come
+    in the same type); lse is float32."""
     _check_qkv(q, k, v, mask_kind)
-    if q.dtype != torch.float32:
-        raise NotImplementedError(
-            f"the attention backward takes float32 only, got {q.dtype} (no bf16 model trains yet)")
     b, s, nh, hd = q.shape
     t, nkv = k.shape[1], k.shape[2]
     for name, x, shape, dtype in (("o", o, q.shape, q.dtype), ("do", do, q.shape, q.dtype),
@@ -115,7 +117,7 @@ def flash_attention_bwd_cuda(
             raise ValueError(f"{name} must be contiguous of shape {tuple(shape)}, got {tuple(x.shape)}")
     for name, x in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do), ("lse", lse)):
         if x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (the kernel reads float4s)")
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel copies 16-byte vectors)")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, nh, s), dtype=torch.float32, device=q.device)
     lib = _build.load()
@@ -123,24 +125,29 @@ def flash_attention_bwd_cuda(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
         b, s, t, nh, nkv, hd, MASK_KINDS[mask_kind], int(window), float(attn_softcap),
-        hd ** -0.5, q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+        hd ** -0.5, DTYPES[q.dtype], q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd")
-    flash_attention_bwd_cuda.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention_bwd_cuda.launches_bf16 += 1
+    else:
+        flash_attention_bwd_cuda.launches += 1
     return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """K1 forward, attention-backward kernel backward.  For CUDA tensors
-    only (the CPU differentiates the plain version with autograd).  The
-    forward saves q, k, v, K1's output and its lse; under activation
-    checkpointing they are dropped and the forward reruns in the backward
-    pass (one more K1 launch)."""
+    """K1 forward, attention-backward kernel backward, in float32 or
+    bfloat16; any other type raises.  For CUDA tensors only (the CPU
+    differentiates the plain version with autograd).  The forward saves q,
+    k, v, K1's output and its lse; under activation checkpointing they are
+    dropped and the forward reruns in the backward pass (one more K1
+    launch)."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask_kind: str, window: int, attn_softcap: float):
-        if q.dtype != torch.float32:
+        if q.dtype not in DTYPES:
             raise NotImplementedError(
-                f"training attention takes float32 only, got {q.dtype} (no bf16 model trains yet)")
+                f"training attention takes float32 or bfloat16, got {q.dtype}")
         o, lse = flash_attention_lse_cuda(q, k, v, mask_kind=mask_kind, window=window,
                                           attn_softcap=attn_softcap)
         ctx.save_for_backward(q, k, v, o, lse)
@@ -157,3 +164,4 @@ class FlashAttentionFn(torch.autograd.Function):
 flash_attention_cuda.launches = 0
 flash_attention_cuda.launches_bf16 = 0
 flash_attention_bwd_cuda.launches = 0
+flash_attention_bwd_cuda.launches_bf16 = 0

@@ -21,6 +21,7 @@ _COUNTERS = {
     "flash_attention": (fa.flash_attention_cuda, "launches"),
     "flash_attention_bf16": (fa.flash_attention_cuda, "launches_bf16"),
     "flash_attention_bwd": (fa.flash_attention_bwd_cuda, "launches"),
+    "flash_attention_bwd_bf16": (fa.flash_attention_bwd_cuda, "launches_bf16"),
     "quantize_int8": (qz.quantize_int8_cuda, "launches"),
     "dequantize_int8": (qz.dequantize_int8_cuda, "launches"),
     "decide_dest": (dc.decide_dest_cuda, "launches"),

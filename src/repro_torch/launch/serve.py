@@ -4,8 +4,9 @@ batched greedy decode with a KV cache.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch micro-lm --tokens 32
 
 Runs on the card unless ``--device cpu`` is given.  The JAX launcher's
-``--green-route`` mode needs the orchestration core, which is not ported
-yet (ROADMAP Queue 1, item 11).
+``--green-route`` mode is not ported yet: its simulated horizon runs the
+simulator under the chunked serving engine (``core/serving_kernels.py``,
+ROADMAP Queue 1 step 2, item 11), which the port does not have.
 """
 from __future__ import annotations
 

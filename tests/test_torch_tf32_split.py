@@ -1,4 +1,5 @@
-"""The rounding design of the card's float32 flash attention (K1), on the CPU.
+"""The rounding design of the card's float32 flash attention (K1) and of its
+backward, on the CPU.
 
 The kernel runs both products on TF32 tensor cores with a 3xTF32 split:
 each operand x becomes hi = tf32(x) and lo = tf32(x - hi), rounded to
@@ -16,6 +17,15 @@ accumulates.  So this test checks the rounding design only, not the
 kernel's error.  On an H100 the kernel's max abs error against its plain
 version on the same shapes is about 6.4e-6 (PERF.md), three times this
 test's bound; chip_smoke.py holds it to FLASH_TOL = 1e-5.
+
+The backward (csrc/flash_attention_bwd.cu) is emulated the same way: its
+five products through ``matmul``, P = exp(x - lse) from the emulated
+forward's log-sum-exp, D = rowsum(dO * O) from the emulated forward's
+output, and dQ, dK, dV summed in float32 over fresh per-pass products of
+the kernel's pass size (dK and dV across a GQA group's heads too).  It is
+held to the plain version at 1e-5 of each gradient's largest element
+(chip_smoke.py's GRAD_TOL, 1e-4, leaves room for the card's truncating
+accumulation); single TF32 misses.
 """
 import os
 import sys
@@ -86,6 +96,66 @@ def _inputs(case, seed):
 
 CASES = chip_smoke.FLASH_CASES
 assert any(c[5] == 256 for c in CASES)
+# One each of causal, window + softcap, and full with t != s and GQA.
+BWD_CASES = [(1, 200, 200, 4, 2, 32, "causal", 0, 0.0),
+             (2, 512, 512, 6, 6, 64, "window", 256, 30.0),
+             (1, 100, 300, 2, 1, 128, "full", 0, 0.0)]
+assert all(c in chip_smoke.FLASH_BWD_CASES for c in BWD_CASES)
+BWD_TOL = 1e-5
+
+
+def _pass_rows(hd: int) -> int:
+    """Streamed rows per register pass of the backward kernel (Bwd::kNC, float32)."""
+    return 16 if hd == 256 else 32
+
+
+def attention_bwd(q, k, v, do, *, mask_kind, window, attn_softcap, terms):
+    """The backward kernel's arithmetic: (dq, dk, dv)."""
+    b, s, nh, hd = q.shape
+    t, nkv = k.shape[1], k.shape[2]
+    g, scale, rows = nh // nkv, hd ** -0.5, _pass_rows(hd)
+    kh = k.repeat_interleave(g, dim=2).permute(0, 2, 1, 3).contiguous()
+    vh = v.repeat_interleave(g, dim=2).permute(0, 2, 1, 3).contiguous()
+    qh, doh = (x.permute(0, 2, 1, 3).contiguous() for x in (q, do))
+    sc = matmul(qh, kh.transpose(-1, -2).contiguous(), terms) * scale
+    dcap = torch.ones_like(sc)
+    if attn_softcap:
+        th = torch.tanh(sc / attn_softcap)
+        sc, dcap = attn_softcap * th, 1 - th * th
+    ok = torch.ones(s, t, dtype=torch.bool)
+    if mask_kind != "full":
+        qpos, kpos = torch.arange(s)[:, None], torch.arange(t)[None, :]
+        ok = kpos <= qpos
+        if mask_kind == "window" and window > 0:
+            ok &= (qpos - kpos) < window
+    lse = torch.logsumexp(torch.where(ok, sc, torch.full((), ref.NEG_INF)), -1, keepdim=True)
+    p = torch.where(ok, torch.exp(sc - lse), torch.zeros(()))
+    o = matmul(p, vh, terms)  # the forward's output
+    d = (doh * o).sum(-1, keepdim=True)
+    ds = p * (matmul(doh, vh.transpose(-1, -2).contiguous(), terms) - d) * dcap * scale
+
+    def fresh_sum(a, bmat, n):  # sum over passes of n contraction rows, each product fresh
+        out = torch.zeros(a.shape[:-1] + bmat.shape[-1:])
+        for i in range(0, n, rows):
+            out = out + matmul(a[..., i:i + rows].contiguous(), bmat[..., i:i + rows, :].contiguous(),
+                               terms)
+        return out
+
+    dq = fresh_sum(ds, kh, t)
+    dk = fresh_sum(ds.transpose(-1, -2), qh, s).reshape(b, nkv, g, t, hd)
+    dv = fresh_sum(p.transpose(-1, -2), doh, s).reshape(b, nkv, g, t, hd)
+    dk, dv = (x[:, :, 0] + sum(x[:, :, i] for i in range(1, g)) for x in (dk, dv))
+    return dq.permute(0, 2, 1, 3), dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)
+
+
+def _bwd_errors(case, terms):
+    """Each gradient's max abs error as a share of BWD_TOL x its largest element."""
+    q, k, v = _inputs(case, 0)
+    do = torch.from_numpy(np.random.default_rng(1).standard_normal(q.shape).astype(np.float32))
+    kw = dict(mask_kind=case[6], window=case[7], attn_softcap=case[8])
+    want = ref.flash_attention_bwd_ref(q, k, v, do, **kw)
+    got = attention_bwd(q, k, v, do, terms=terms, **kw)
+    return [float((g - w).abs().max()) / (BWD_TOL * float(w.abs().max())) for g, w in zip(got, want)]
 
 
 def test_tf32_rna_rounds_to_nearest_ties_away():
@@ -126,3 +196,15 @@ def test_single_tf32_attention_misses_float32_tolerance(case):
     got = attention(q, k, v, terms=1, **kw)
     assert not torch.allclose(got, want, atol=TOL, rtol=TOL)
     assert float((got - want).abs().max()) > 20 * TOL
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=[str(c) for c in BWD_CASES])
+def test_3xtf32_attention_bwd_meets_tolerance(case):
+    """The backward's split, fresh per-pass sums and P from the lse keep each
+    gradient within 1e-5 of its largest element of the plain version."""
+    assert max(_bwd_errors(case, terms=3)) <= 1.0
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=[str(c) for c in BWD_CASES])
+def test_single_tf32_attention_bwd_misses_tolerance(case):
+    assert max(_bwd_errors(case, terms=1)) > 10.0
