@@ -45,13 +45,33 @@ Phases, each of which raises on failure:
                 int8-compressed gradients; launch.train.main on the default
                 device; each run with the launch counters set to 0 just
                 before it and held to exact counts just after; the step's
-                device time, busy share and top device ops.
+                device time, busy share and top device ops;
+  9. serving -- the float32 feasibility grids (Fig. 2 phase diagram, size
+                bands, utility, feasible destinations) against
+                device="cpu"; the serving plane's default chunked engine
+                and the host entry points, each counted: the
+                inference-heavy week (~1.1 M requests, static policy)
+                against BENCH_quick.json's serving_fastpath digits;
+                launch.serve --green-route 64; launch.dryrun --plan against
+                --device cpu;
+ 10. examples -- the four examples' main on the card: quickstart (one
+                Algorithm-1 decision through K4), green_cluster_sim on
+                train-plus-serve against --device cpu, its
+                feasibility-aware run (the chunked engine with K4 on the
+                card) against the recorded carbon-slo row, with its busy
+                share; migrate_across_sites (its K2 launches derived from
+                the leaves it serializes, its output against --device cpu),
+                and train_micro_lm at micro-lm-100m's full width (K1 and
+                its backward counted as derived, save times), then one
+                step of that model at the example's shape on the card
+                against device="cpu", profiled.
 Then one JSON line of per-kernel numbers, and last the ok line.  Nothing
 runs on the CPU in place of the card: without a card the script exits 1.
 """
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import shutil
@@ -76,16 +96,21 @@ import numpy as np  # noqa: E402
 
 from repro_torch.core import feasibility  # noqa: E402
 from repro_torch.core import policy_kernels as pk  # noqa: E402
+from repro_torch.core.serving_kernels import ChunkedServingPlane  # noqa: E402
 from repro_torch.core.simulator import ClusterSimulator  # noqa: E402
 from repro_torch.core.sweep import TIMING_KEYS, SweepSpec, run_cells, run_cells_batched  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLMDataset  # noqa: E402
 from repro_torch.core.migration import migrate_job  # noqa: E402
 from repro_torch.device import resolve  # noqa: E402
+from repro_torch.examples import (  # noqa: E402
+    green_cluster_sim, migrate_across_sites, quickstart, train_micro_lm)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.decide import decide_dest_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd_cuda, flash_attention_cuda, flash_attention_lse_cuda)
 from repro_torch.kernels.quantize import dequantize_int8_cuda, quantize_int8_cuda  # noqa: E402
+from repro_torch.launch import dryrun as dryrun_launcher  # noqa: E402
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.launch.serve import greedy_decode  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
@@ -120,10 +145,12 @@ MODEL_BF16_TOL = 2e-2
 DECODE_TOL = 2e-4
 
 # (b, s, t, nh, nkv, hd, mask, window, softcap): the slice's shape, the
-# float32 rows of tests/test_kernels.py::SWEEP, the reduced model's hd 16,
-# and ragged shapes that divide no tile.
+# training example's (micro-lm-100m, 2 x 64 tokens a step), the float32
+# rows of tests/test_kernels.py::SWEEP, the reduced model's hd 16, and
+# ragged shapes that divide no tile.
 FLASH_CASES = [
     (BATCH, PROMPT, PROMPT, 6, 6, 64, "causal", 0, 0.0),
+    (2, 64, 64, 8, 8, 64, "causal", 0, 0.0),
     (2, 128, 128, 4, 4, 64, "causal", 0, 0.0),
     (2, 256, 256, 4, 2, 64, "causal", 0, 0.0),
     (2, 256, 256, 8, 1, 128, "causal", 0, 0.0),
@@ -253,6 +280,20 @@ BENCH_QUICK = os.path.join(HERE, "benchmarks", "BENCH_quick.json")
 # fleet-compiled digits the week must reproduce, rounded as benchmarks/run.py rounds them
 FLEET_DIGITS = (("grid_kwh", 1), ("renewable_kwh", 1), ("grid_gco2", 1), ("grid_cost", 2),
                 ("migrations", None), ("completed", None), ("rejected_actions", None))
+# The serving week's digits (BENCH_quick.json "serving_fastpath") and
+# train-plus-serve's ("policies" / "carbon-slo"), rounded as
+# benchmarks/run.py rounds them.
+SERVING_DIGITS = (("requests_arrived", None), ("requests_served", None),
+                  ("requests_dropped", None), ("slo_violations", None),
+                  ("latency_p95_s", 3), ("request_gco2", 1))
+CARBON_SLO_DIGITS = FLEET_DIGITS + SERVING_DIGITS
+# The training example at micro-lm-100m's full width (20 layers, d 512,
+# 8 x 64 heads), its default batch 2 x 64 and lr 1e-3, and its default 300
+# steps: its own check that the loss falls across the migration fails on
+# the card at 40, 60 and 90 steps (``python -m
+# repro_torch.examples.train_micro_lm --steps N``; PERF.md), so the depth is
+# not cut.
+EXAMPLE_STEPS = 300
 # K4 at the upper fleet shape: 131,072 jobs x 100 sites (104 padded), one cell
 UPPER_JOBS, UPPER_SITES = 131072, 100
 # A cell of more sites than K4 stages at a time (128): 1,024 jobs x 300 sites
@@ -525,11 +566,12 @@ def run_train_lifecycle(cfg, workdir, *, mode, grad_compress, device, batch=TRAI
                        migrate_s, restore_s, run_a_s, run_b_s)
 
 
-def run_train_steps(cfg, params, batches, *, device):
+def run_train_steps(cfg, params, batches, *, device, profile=False):
     """The first batch's gradients, then one train step per batch, from
     ``params`` copied to ``device``, with the launch counters set to 0 just
-    before the steps and read just after.  Returns (grads, [metrics per
-    step], launches)."""
+    before the steps and read just after (with ``profile``, the steps run
+    under torch.profiler).  Returns (grads, [metrics per step], launches,
+    (wall us, device events) of the steps or None)."""
     dev = resolve(device)
     model = build_model(cfg)
     p = tree_map(lambda x: x.detach().to(dev, copy=True), params)
@@ -538,13 +580,23 @@ def run_train_steps(cfg, params, batches, *, device):
     _, grads = value_and_grad(model, p, {k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()},
                               step_cfg.remat_policy)
     step = make_train_step(model, step_cfg)
-    opt = init_opt_state(p)
-    metrics = []
+    state = (p, init_opt_state(p))
+
+    def steps():
+        nonlocal state
+        metrics = []
+        for batch in batches:
+            *state, m = step(*state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        return metrics
+
     ops.reset_launch_counts()
-    for batch in batches:
-        p, opt, m = step(p, opt, batch)
-        metrics.append({k: float(v) for k, v in m.items()})
-    return grads, metrics, ops.launch_counts()
+    if profile:
+        metrics, wall_us, events = _profiled(steps)
+        prof = (wall_us, events)
+    else:
+        metrics, prof = steps(), None
+    return grads, metrics, ops.launch_counts(), prof
 
 
 # ---------------------------------------------------------------------------
@@ -599,15 +651,33 @@ def same_output(name: str, got, want) -> None:
         raise RuntimeError(f"{name} on the card differs from the same run with device='cpu'")
 
 
-def check_fleet_digits(r) -> str:
+def exactly(counts: dict, **want) -> dict:
+    """Every counter 0 but ``want``'s."""
+    return {**dict.fromkeys(counts, 0), **want}
+
+
+def k4_only(name: str, counts: dict) -> None:
+    if counts["decide_dest"] <= 0 or counts != exactly(counts, decide_dest=counts["decide_dest"]):
+        raise RuntimeError(f"{name}: launch counts {counts}, expected K4 only and > 0")
+
+
+def check_bench_row(r, keys, digits) -> str:
+    """``r``'s numbers, rounded as benchmarks/run.py rounds them, against
+    the BENCH_quick.json row at ``keys``."""
     with open(BENCH_QUICK) as f:
-        row = json.load(f)["policies"]["fleet-compiled"]
+        row = json.load(f)
+    for key in keys:
+        row = row[key]
     got = {k: (round(getattr(r, k), nd) if nd is not None else getattr(r, k))
-           for k, nd in FLEET_DIGITS}
-    want = {k: row[k] for k, _ in FLEET_DIGITS}
+           for k, nd in digits}
+    want = {k: row[k] for k, _ in digits}
     if got != want:
-        raise RuntimeError(f"fleet-compiled week {got} differs from BENCH_quick.json {want}")
-    return " / ".join(str(got[k]) for k, _ in FLEET_DIGITS)
+        raise RuntimeError(f"{'/'.join(keys)}: {got} differs from BENCH_quick.json {want}")
+    return " / ".join(str(got[k]) for k, _ in digits)
+
+
+def check_fleet_digits(r) -> str:
+    return check_bench_row(r, ("policies", "fleet-compiled"), FLEET_DIGITS)
 
 
 @contextlib.contextmanager
@@ -750,8 +820,7 @@ def run_fleet_paths(dev, cpu: dict) -> dict:
         ops.reset_launch_counts()
         out = fn(dev)
         counts = ops.launch_counts()
-        if counts["decide_dest"] <= 0 or any(v for k, v in counts.items() if k != "decide_dest"):
-            raise RuntimeError(f"{name}: launch counts {counts}, expected K4 only and > 0")
+        k4_only(name, counts)
         same_output(name, out, cpu[name])
         st = path_stats(out)
         extra = f"; fleet digits {check_fleet_digits(out)} as recorded" if name.startswith("fleet") else ""
@@ -1081,14 +1150,17 @@ def _device_us(evt) -> float:
     return float(getattr(evt, "self_device_time_total", getattr(evt, "self_cuda_time_total", 0.0)))
 
 
-def _profiled(fn):
+def _profiled(fn, *, host_ops: bool = True):
     """Run ``fn`` under torch.profiler; returns (its output, wall us, the
-    device-side events with time: kernels and copies)."""
+    device-side events with time: kernels and copies).  Without
+    ``host_ops`` only the device is traced, which keeps a long host-bound
+    run's trace small."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -1196,16 +1268,19 @@ def phase_profile(cfg, params, prompts, dev) -> None:
             log(f"[profile]   {_device_us(e):9.0f} us  x{e.count:<5d} {e.key[:90]}")
 
 
-def check_card_vs_cpu(cfg, params, dev) -> None:
-    """Two train steps of micro-lm from the same params on the card and
-    through device="cpu", on the same batches: losses, grad norms and the
-    first step's gradients."""
-    data = SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, CARD_CPU_BATCH)
-    batches = [data.batch(i) for i in range(2)]
+def check_card_vs_cpu(cfg, params, dev, *, seq=TRAIN_SEQ, steps=2, tag="[train]",
+                      profile=False) -> None:
+    """``steps`` train steps of ``cfg`` on CARD_CPU_BATCH x ``seq`` tokens
+    from the same params on the card and through device="cpu", on the same
+    batches: losses, grad norms and the first step's gradients; the card's
+    launches as derived (with ``profile``, its steps' busy share)."""
+    data = SyntheticLMDataset(cfg.vocab_size, seq, CARD_CPU_BATCH)
+    batches = [data.batch(i) for i in range(steps)]
     t0 = time.perf_counter()
-    g_cpu, m_cpu, _ = run_train_steps(cfg, params, batches, device="cpu")
+    g_cpu, m_cpu, _, _ = run_train_steps(cfg, params, batches, device="cpu")
     cpu_s = time.perf_counter() - t0
-    g_card, m_card, counts = run_train_steps(cfg, params, batches, device=dev)
+    g_card, m_card, counts, prof = run_train_steps(cfg, params, batches, device=dev,
+                                                   profile=profile)
     expect = {k: v * len(batches) for k, v in step_launches(cfg, "full").items()}
     if counts != expect:
         raise RuntimeError(f"train steps: launch counts {counts}, expected {expect}")
@@ -1226,9 +1301,12 @@ def check_card_vs_cpu(cfg, params, dev) -> None:
             raise RuntimeError(f"first-step gradient {'/'.join(path)} on the card vs the CPU: "
                                f"{100 * share:.1f}% of {CARD_CPU_GRAD_TOL} x its max")
         worst = max(worst, share)
-    log(f"[train] card vs device='cpu', {CARD_CPU_BATCH} x {TRAIN_SEQ} tokens, 2 steps (CPU "
-        f"{cpu_s:.1f} s): {'; '.join(parts)}; first-step gradients within {CARD_CPU_GRAD_TOL} x "
-        f"each leaf's max, at most {100 * worst:.2f}% of it")
+    log(f"{tag} {cfg.name} card vs device='cpu', {CARD_CPU_BATCH} x {seq} tokens, {steps} step(s) "
+        f"(CPU {cpu_s:.1f} s): {'; '.join(parts)}; first-step gradients within {CARD_CPU_GRAD_TOL} "
+        f"x each leaf's max, at most {100 * worst:.2f}% of it; launches {counts}, as derived")
+    if prof is not None:
+        log_step_profile(f"{cfg.name}, {steps} train step(s) on {CARD_CPU_BATCH} x {seq} tokens",
+                         *prof)
 
 
 def check_bf16_train(cfg, params, dev) -> dict:
@@ -1241,9 +1319,9 @@ def check_bf16_train(cfg, params, dev) -> dict:
     p16 = tree_map(lambda x: x.to(torch.bfloat16), params)
     batches = [SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, CARD_CPU_BATCH).batch(0)]
     t0 = time.perf_counter()
-    g_cpu, (m_cpu,), _ = run_train_steps(cfg16, p16, batches, device="cpu")
+    g_cpu, (m_cpu,), _, _ = run_train_steps(cfg16, p16, batches, device="cpu")
     cpu_s = time.perf_counter() - t0
-    g_card, (m_card,), counts = run_train_steps(cfg16, p16, batches, device=dev)
+    g_card, (m_card,), counts, _ = run_train_steps(cfg16, p16, batches, device=dev)
     expect = step_launches(cfg16, "full")
     if counts != expect:
         raise RuntimeError(f"bf16 train step: launch counts {counts}, expected {expect}")
@@ -1346,6 +1424,23 @@ STEP_PARTS = (("K1 forward", ("flash_fwd",)), ("K1 backward", ("flash_bwd",)),
               ("GEMMs", ("gemm", "cutlass", "xmma", "cublas")), ("copies", ("Memcpy", "Memset")))
 
 
+def log_step_profile(what: str, wall_us: float, events) -> None:
+    """Busy share and split of profiled train steps (``what`` names them)."""
+    if not events:
+        log(f"[profile] {what}: device time not measured (the profiler saw no device events)")
+        return
+    busy = sum(_device_us(e) for e in events)
+    split = dict.fromkeys([name for name, _ in STEP_PARTS] + ["other"], 0.0)
+    for e in events:
+        part = next((name for name, keys in STEP_PARTS if any(k in e.key for k in keys)), "other")
+        split[part] += _device_us(e)
+    log(f"[profile] {what}: wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
+        f"({100 * busy / wall_us:.1f}%), idle {100 * (1 - busy / wall_us):.1f}%; "
+        + ", ".join(f"{name} {us / 1e3:.2f} ms ({100 * us / busy:.1f}%)" for name, us in split.items()))
+    for e in sorted(events, key=_device_us, reverse=True)[:8]:
+        log(f"[profile]   {_device_us(e):9.0f} us  x{e.count:<5d} {e.key[:90]}")
+
+
 def phase_train_profile(cfg, params, dev) -> None:
     """The warm training step at the slice's shape: device time per step
     (CUDA events around each step, median of 5), tokens/s, AdamW's time
@@ -1378,19 +1473,7 @@ def phase_train_profile(cfg, params, dev) -> None:
         f"(CUDA events, median of 5; host wall {statistics.median(walls):.2f} ms), "
         f"{TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3):.0f} tokens/s; AdamW alone {adamw_ms:.3f} ms")
     _, wall_us, events = _profiled(lambda: [step(p, opt, batch) for _ in range(2)])
-    if not events:
-        log("[profile] train step: device time not measured (the profiler saw no device events)")
-        return
-    busy = sum(_device_us(e) for e in events)
-    split = dict.fromkeys([name for name, _ in STEP_PARTS] + ["other"], 0.0)
-    for e in events:
-        part = next((name for name, keys in STEP_PARTS if any(k in e.key for k in keys)), "other")
-        split[part] += _device_us(e)
-    log(f"[profile] 2 train steps: wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
-        f"({100 * busy / wall_us:.1f}%), idle {100 * (1 - busy / wall_us):.1f}%; "
-        + ", ".join(f"{name} {us / 1e3:.2f} ms ({100 * us / busy:.1f}%)" for name, us in split.items()))
-    for e in sorted(events, key=_device_us, reverse=True)[:8]:
-        log(f"[profile]   {_device_us(e):9.0f} us  x{e.count:<5d} {e.key[:90]}")
+    log_step_profile("2 train steps", wall_us, events)
 
 
 def phase_train(cfg, params, dev) -> dict:
@@ -1410,6 +1493,185 @@ def phase_train(cfg, params, dev) -> dict:
         counts = run_train_launcher(cfg, os.path.join(work, "launcher"))
         total = {k: total.get(k, 0) + v for k, v in counts.items()}
     phase_train_profile(cfg, params, dev)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# The serving plane, the host entry points and the examples
+# ---------------------------------------------------------------------------
+
+
+def counted(fn):
+    """``fn()`` with the launch counters set to 0 just before it and read
+    just after: (its output, the counts, wall seconds)."""
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, ops.launch_counts(), time.perf_counter() - t0
+
+
+def printed(main, argv):
+    """An entry point's ``main(argv)`` with its standard output captured:
+    (its return value, the text)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = main(argv)
+    return out, buf.getvalue()
+
+
+def log_lines(tag: str, text: str) -> None:
+    for line in text.rstrip("\n").splitlines():
+        log(f"{tag} | {line}")
+
+
+def check_feasibility_grids(dev) -> None:
+    """The float32 feasibility grids (torch, no kernel of their own) on the
+    card against device="cpu": the Fig. 2 phase diagram of
+    benchmarks/fig2_phase.py, the size bands, the utility model and the
+    feasible destinations, each exactly equal."""
+    sizes, bws = np.logspace(0, 3, 25), np.logspace(-1, 2, 13)
+    rng = np.random.default_rng(0)
+    s_bytes = np.concatenate([[10e9, 100e9], rng.uniform(0, 300e9, 62)])
+    ren, load = rng.uniform(0, 1, 64), rng.uniform(0, 1, 64)
+    bw, win = rng.choice([0.0, 1e9, 2.5e9, 10e9], 64), rng.uniform(0, 6 * 3600, 64)
+
+    def arrays(device) -> dict:
+        out = {f"phase_diagram {k}": v
+               for k, v in feasibility.phase_diagram(sizes, bws, device=device).items()}
+        out["classify_by_size"] = feasibility.classify_by_size(s_bytes, device=device).cpu().numpy()
+        out["site_utility"] = feasibility.site_utility(ren, load, device=device).cpu().numpy()
+        out["feasible_destinations"] = feasibility.feasible_destinations(33e9, bw, win,
+                                                                         device=device)
+        return out
+
+    card, cpu = arrays(dev), arrays("cpu")
+    for name, want in cpu.items():
+        if card[name].dtype != want.dtype or not np.array_equal(card[name], want):
+            raise RuntimeError(f"{name} on the card differs from device='cpu'")
+    log(f"[serving] float32 feasibility grids on the card equal device='cpu': {', '.join(cpu)}")
+
+
+def phase_serving(dev) -> int:
+    """The serving plane's default chunked engine and the host entry
+    points on the card (train-plus-serve is held in phase_examples, where
+    green_cluster_sim runs it).  Returns their K4 launches."""
+    check_feasibility_grids(dev)
+    t0 = time.perf_counter()
+    sim = ClusterSimulator.from_scenario("inference-heavy", "static", device=dev)
+    build_s = time.perf_counter() - t0
+    if type(sim.serving) is not ChunkedServingPlane:
+        raise RuntimeError(f"the serving week runs {type(sim.serving).__name__}, not the chunked plane")
+    r, counts, _ = counted(sim.run)
+    if any(counts.values()):
+        raise RuntimeError(f"serving week: launch counts {counts}, expected none (host code)")
+    digits = check_bench_row(r, ("serving_fastpath",), SERVING_DIGITS)
+    log(f"[serving] inference-heavy week, static, chunked engine: {r.requests_arrived} requests, "
+        f"wall {r.wall_time_s:.3f} s (set-up {build_s:.3f} s), {r.requests_arrived / r.wall_time_s:.0f} "
+        f"requests/s, {r.ticks} ticks; no launch (host code); arrived / served / dropped / SLO "
+        f"violations / p95 s / request gCO2 {digits} as recorded in BENCH_quick.json")
+
+    (rc, text), counts, wall = counted(lambda: printed(serve_launcher.main, ["--green-route", "64"]))
+    if rc != 0 or "served=64/64" not in text or any(counts.values()):
+        raise RuntimeError(f"launch.serve --green-route 64: rc {rc}, launches {counts}:\n{text}")
+    log(f"[serving] launch.serve.main --green-route 64 on the default device: {wall:.3f} s, no "
+        f"launch (static policy), served 64/64")
+    log_lines("[serving]", text)
+
+    (rc, text), counts, wall = counted(lambda: printed(dryrun_launcher.main, ["--plan"]))
+    _, cpu_text = printed(dryrun_launcher.main, ["--plan", "--device", "cpu"])
+    if rc != 0 or text != cpu_text or counts != exactly(counts, decide_dest=1):
+        raise RuntimeError(f"launch.dryrun --plan: rc {rc}, launches {counts} (expected one K4), "
+                           f"output on the card\n{text}\nwith --device cpu\n{cpu_text}")
+    log(f"[serving] launch.dryrun.main --plan on the default device: {wall:.3f} s, K4 launches 1; "
+        f"output equal to --device cpu")
+    log_lines("[serving]", text)
+    return 1
+
+
+def phase_examples(dev) -> dict:
+    """The four examples' main on the card, each counted.  Returns their
+    launches, summed."""
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    (actions, text), counts, wall = counted(lambda: printed(quickstart.main, []))
+    if [str(a) for a in actions] != ["Migrate(jid=0, dest=1)"] or counts != exactly(counts, decide_dest=1):
+        raise RuntimeError(f"quickstart: decision {actions}, launches {counts}")
+    add(counts)
+    log(f"[examples] quickstart: {wall:.3f} s; Algorithm 1 decision {actions} through K4 (1 launch)")
+
+    # train-plus-serve under all four policies; its feasibility-aware run
+    # is the serving plane's chunked engine interleaved with K4, held to
+    # device="cpu" and to BENCH_quick.json's carbon-slo row
+    argv = ["--scenario", "train-plus-serve"]
+    ((res, text), wall_us, events), counts, wall = counted(
+        lambda: _profiled(lambda: printed(green_cluster_sim.main, argv), host_ops=False))
+    t0 = time.perf_counter()
+    cpu_res, cpu_text = printed(green_cluster_sim.main, argv + ["--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    k4_only("green_cluster_sim", counts)
+    for name in res:
+        same_output(f"green_cluster_sim {name}", res[name], cpu_res[name])
+    if text != cpu_text:
+        raise RuntimeError(f"green_cluster_sim output on the card\n{text}\ndiffers from --device "
+                           f"cpu\n{cpu_text}")
+    add(counts)
+    r = res["feasibility-aware"]
+    digits = check_bench_row(r, ("policies", "carbon-slo"), CARBON_SLO_DIGITS)
+    busy = sum(_device_us(e) for e in events)
+    busy = (f"device busy {busy / 1e3:.2f} ms = {100 * busy / wall_us:.3f}% of its wall "
+            f"(device-only trace)" if events else "device time not measured (no device events)")
+    log(f"[examples] green_cluster_sim --scenario train-plus-serve: {wall:.3f} s (--device cpu "
+        f"{cpu_s:.3f} s), K4 launches {counts['decide_dest']}, {busy}; output and summaries "
+        f"equal to --device cpu")
+    log(f"[examples] train-plus-serve, feasibility-aware (green_cluster_sim's run): wall "
+        f"{r.wall_time_s:.3f} s (device='cpu' {cpu_res['feasibility-aware'].wall_time_s:.3f} s), "
+        f"{r.ticks} ticks, decide_s {r.decide_s:.4f}, decide_first_s {r.decide_first_s:.4f}; "
+        f"{digits} as recorded in BENCH_quick.json's carbon-slo row")
+    log_lines("[examples]", "\n".join(text.splitlines()[-8:]))
+
+    cfg = get_config("micro-lm").reduced()
+    params = build_model(cfg).init(0, device="cpu")
+    floats = sum(1 for _, x in flatten_with_paths({"params": params, "opt": init_opt_state(params)})
+                 if x.is_floating_point())
+    (sizes, text), counts, wall = counted(lambda: printed(migrate_across_sites.main, []))
+    _, cpu_text = printed(migrate_across_sites.main, ["--device", "cpu"])
+    # K2 once per float leaf in each of four int8 encodings: serialize int8,
+    # serialize delta-int8, and the manager's two saves (int8, then delta)
+    expect = exactly(counts, quantize_int8=4 * floats)
+    if counts != expect or text != cpu_text:
+        raise RuntimeError(f"migrate_across_sites: launches {counts}, expected {expect}; output on "
+                           f"the card\n{text}\nwith --device cpu\n{cpu_text}")
+    add(counts)
+    log(f"[examples] migrate_across_sites (reduced micro-lm, {floats} float leaves): {wall:.3f} s, "
+        f"K2 launches {counts['quantize_int8']} as derived; output equal to --device cpu")
+    log_lines("[examples]", text)
+
+    cfg = get_config("micro-lm-100m")
+    (out, text), counts, wall = counted(
+        lambda: printed(train_micro_lm.main, ["--steps", str(EXAMPLE_STEPS)]))
+    expect = {k: v * EXAMPLE_STEPS for k, v in step_launches(cfg, "full").items()}
+    if counts != expect:
+        raise RuntimeError(f"train_micro_lm: launch counts {counts}, expected {expect}")
+    add(counts)
+    log_lines("[examples]", text)
+    saves = [(i.nbytes, i.wall_time_s) for i in out["saves"]]
+    save_s = sum(t for _, t in saves)
+    run_s = out["site_a"]["elapsed_s"] + out["site_b"]["elapsed_s"]
+    step_ms = 1e3 * (run_s - save_s) / EXAMPLE_STEPS
+    log(f"[examples] train_micro_lm --steps {EXAMPLE_STEPS}, {cfg.name} at full width, 2 x 64 "
+        f"tokens a step: {wall:.2f} s in all, sites A + B {run_s:.2f} s; {len(saves)} full saves of "
+        f"{saves[0][0]} B in {', '.join(f'{t:.3f}' for _, t in saves)} s; mean step wall without "
+        f"the saves {step_ms:.1f} ms ({2 * 64 / (step_ms / 1e3):.0f} tokens/s); launches as "
+        f"derived {counts}")
+    # the example's model and shape on the card against the CPU (its own
+    # check is only that the loss falls), and its steps' busy share
+    params = build_model(cfg).init(0, device="cpu")
+    check_card_vs_cpu(cfg, params, dev, seq=64, steps=1, tag="[examples]", profile=True)
     return total
 
 
@@ -1480,7 +1742,12 @@ def main() -> int:
         launches[name] += train[name]
     for name in ("flash_attention_bwd", "flash_attention_bwd_bf16"):
         launches[name] = train[name]
-    log(f"[train] launches of the training runs {train}; all counted paths {launches}")
+    log(f"[train] launches of the training runs {train}")
+    launches["decide_dest"] += phase_serving(dev)
+    examples = phase_examples(dev)
+    for name, n in examples.items():
+        launches[name] += n
+    log(f"[examples] launches of the examples {examples}; all counted paths {launches}")
 
     rows = []
     for name, st in stats.items():

@@ -4,19 +4,18 @@ typed Action/ClusterState API, CAISO-calibrated traces, a scenario
 registry, the trace-driven multi-site simulator (§VII), the Monte-Carlo
 sweep engine, and the migration engine.
 
-Numpy host code, as in the JAX package; the migration decide of the
-K4-scoring policies runs the hand-written decide kernel on the chosen
-device (``policy_kernels``).  Not ported yet (ROADMAP Queue 1, item 11):
-the chunked serving fast path (``serving_kernels.py``), ``energy.py``,
-and ``classify_by_size``, ``phase_diagram``, ``site_utility`` and
-``feasible_destinations`` of ``feasibility.py``.
+Numpy host code, as in the JAX package, the chunked serving fast path
+(``serving_kernels.py``) included; the migration decide of the K4-scoring
+policies runs the hand-written decide kernel on the chosen device
+(``policy_kernels``), and the float32 phase diagram, size bands and
+utility model of ``feasibility.py`` run as torch tensors on a ``device``.
 """
 from repro_torch.core import feasibility  # noqa: F401
 from repro_torch.core.feasibility import (  # noqa: F401
     ALPHA, CLASS_A_MAX_S, CLASS_B_MAX_S, P_NODE_KW, P_SYS_KW,
-    FeasibilityVerdict, breakeven_time_s, classify, evaluate,
-    migration_cost_s, migration_energy_kwh, stochastic_feasible,
-    transfer_time_s,
+    FeasibilityVerdict, breakeven_time_s, classify, classify_by_size,
+    evaluate, migration_cost_s, migration_energy_kwh, phase_diagram,
+    stochastic_feasible, transfer_time_s,
 )
 from repro_torch.core.actions import (  # noqa: F401
     Action, Defer, Migrate, Pause, Resume, Throttle,

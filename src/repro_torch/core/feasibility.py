@@ -1,5 +1,5 @@
 """Feasibility-domain model for migratory AI workloads (paper §IV + §VI);
-the numpy path of ``repro/core/feasibility.py``.
+port of ``repro/core/feasibility.py``.
 
 A workload w = (S, τ) migrating from site s to site d over WAN bandwidth
 B_{s,d} is governed by:
@@ -14,13 +14,24 @@ with T_transfer = 8·S / B  (S bytes, B bits/s).  Classification (§VI.D):
   class C:  T_transfer ≥ 300 s     (never migrated)
 
 Inputs are floats or numpy arrays and broadcast.  Zero bandwidth (no link)
-yields an infinite transfer time, i.e. infeasible, without warnings.
+yields an infinite transfer time, i.e. infeasible, without warnings.  This
+float64 numpy path is what the orchestrator evaluates every tick.
+
+The Fig. 2 phase diagram, the size bands and the §VI.F-G utility model run
+in float32 on a ``device`` (``None`` = the card), as the JAX package
+computes them in float32 with ``jnp``: ``phase_diagram`` and
+``feasible_destinations`` return numpy, ``classify_by_size`` and
+``site_utility`` return tensors.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import NamedTuple, Union
 
 import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve
 
 ArrayLike = Union[float, np.ndarray]
 
@@ -32,6 +43,8 @@ P_SYS_KW = 1.8  # combined system power during transfer (§IV.D)
 P_NODE_KW = 0.75  # compute-node power (§IV.D)
 CLASS_A_MAX_S = 60.0
 CLASS_B_MAX_S = 300.0
+
+GB = 1e9
 
 
 class FeasibilityVerdict(NamedTuple):
@@ -90,6 +103,16 @@ def classify(size_bytes: ArrayLike, bandwidth_bps: ArrayLike) -> np.ndarray:
     return _classify_from_time(np.asarray(transfer_time_s(size_bytes, bandwidth_bps)))
 
 
+def classify_by_size(size_bytes, *, device: DeviceLike = None) -> torch.Tensor:
+    """Table IV size bands (equivalent to the time thresholds at ~1 Gbps):
+    A < 10 GB, B 10–100 GB, C > 100 GB.  Sizes and thresholds in float32,
+    so a size that rounds to 100 GB there is class B."""
+    dev = resolve(device)
+    s = torch.as_tensor(size_bytes, dtype=torch.float32, device=dev)
+    a_max, b_max = (_f32(10 * GB, dev), _f32(100 * GB, dev))
+    return torch.where(s < a_max, 0, torch.where(s <= b_max, 1, 2)).to(torch.int32)
+
+
 def evaluate(
     size_bytes: ArrayLike,
     bandwidth_bps: ArrayLike,
@@ -133,3 +156,82 @@ def stochastic_feasible(
     window_lo = (np.asarray(window_forecast_s, dtype=np.float64)
                  + ppf * np.asarray(window_sigma_s, dtype=np.float64))
     return t_cost < alpha * np.maximum(window_lo, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Phase diagram (Fig. 2) and utility model (§VI.F-G), in float32
+# ---------------------------------------------------------------------------
+
+
+def _f32(x, dev: torch.device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+
+def _evaluate_f32(bits, bw, window, alpha: float = ALPHA) -> FeasibilityVerdict:
+    """``evaluate`` on float32 tensors from ``bits`` = 8·S, one rounding
+    per operation in the reference's order; every constant rounded to
+    float32 first."""
+    dev = bits.device
+    t_transfer = bits / bw
+    t_cost = t_transfer + _f32(T_LOAD_S, dev) + _f32(T_DOWNTIME_S, dev)
+    t_be = _f32(P_SYS_KW / P_NODE_KW, dev) * t_transfer
+    cls = torch.where(t_transfer < _f32(CLASS_A_MAX_S, dev), 0,
+                      torch.where(t_transfer < _f32(CLASS_B_MAX_S, dev), 1, 2)).to(torch.int32)
+    time_ok = t_cost < _f32(alpha, dev) * window
+    energy_ok = t_be < window
+    feasible = time_ok & energy_ok & (cls != 2)
+    return FeasibilityVerdict(feasible, time_ok, energy_ok, t_transfer, t_cost, t_be, cls)
+
+
+def phase_diagram(
+    sizes_gb: np.ndarray,
+    bandwidths_gbps: np.ndarray,
+    window_s: float = 2.5 * 3600,
+    alpha: float = ALPHA,
+    *,
+    device: DeviceLike = None,
+):
+    """Grid of (class, T_transfer, feasible) over checkpoint-size × WAN-bw —
+    the paper's Fig. 2. Returns dict of (len(sizes), len(bws)) arrays."""
+    dev = resolve(device)
+    S = _f32(np.asarray(sizes_gb), dev)[:, None] * _f32(GB, dev)
+    B = _f32(np.asarray(bandwidths_gbps), dev)[None, :] * _f32(1e9, dev)
+    v = _evaluate_f32(_f32(8.0, dev) * S, B, _f32(window_s, dev), alpha)
+    return {
+        "t_transfer_s": v.t_transfer_s.cpu().numpy(),
+        "class": v.workload_class.cpu().numpy(),
+        "feasible": v.feasible.cpu().numpy(),
+        "t_breakeven_s": v.t_breakeven_s.cpu().numpy(),
+    }
+
+
+@dataclass(frozen=True)
+class UtilityWeights:
+    gamma: float = 1.0  # renewable-availability weight  (§VI.F)
+    beta: float = 1.0  # congestion/load weight
+
+
+def site_utility(renewable, load, w: UtilityWeights = UtilityWeights(), *,
+                 device: DeviceLike = None) -> torch.Tensor:
+    """U(w, d) = γ·R(d) − β·L(d)."""
+    dev = resolve(device)
+    return (_f32(w.gamma, dev) * _f32(np.asarray(renewable), dev)
+            - _f32(w.beta, dev) * _f32(np.asarray(load), dev))
+
+
+def feasible_destinations(
+    size_bytes: float,
+    bandwidths_bps: np.ndarray,  # (n_sites,) from current site
+    windows_s: np.ndarray,  # (n_sites,) remaining renewable windows
+    *,
+    alpha: float = ALPHA,
+    device: DeviceLike = None,
+) -> np.ndarray:
+    """D_feasible(w, s) = {d | class(w) != C  ∧  T_mig < α·T_d}  (§VI.E).
+    8·S is taken in float64 and then rounded to float32, as the JAX
+    package rounds its Python scalar."""
+    dev = resolve(device)
+    v = _evaluate_f32(_f32(8.0 * size_bytes, dev),
+                      _f32(np.asarray(bandwidths_bps), dev),
+                      _f32(np.asarray(windows_s), dev), alpha)
+    return v.feasible.cpu().numpy()

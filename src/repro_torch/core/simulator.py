@@ -57,9 +57,10 @@ rather than rounded up to the next tick).
 Device: a simulator runs on one device (``device=``, ``None`` = the
 card).  Everything but the migration decide is numpy on the host; the
 policies that score with the K4 decide kernel (feasibility-aware,
-oracle, plan-ahead) launch it on that device every tick.  The chunked
-serving fast path of the JAX package (``serving_kernels.py``) is not
-ported yet: a serving run must pick ``serving_engine="event"``.
+oracle, plan-ahead) launch it on that device every tick.  The serving
+plane is host code under either engine: the chunked fast path
+(``serving_kernels.py``, the default) and the per-event scalar plane give
+bit-identical summaries.
 """
 from __future__ import annotations
 
@@ -215,10 +216,10 @@ class SimConfig:
     # [seed, 151, ...] streams, so enabling it never moves a training draw.
     serving: Optional[ServingProfile] = None
     serving_router: str = "green-first"
-    # serving engine selection: "chunked" (the default) is the JAX
-    # package's span-advance fast path (serving_kernels.py), not ported
-    # yet: a serving run raises under it; "event" runs the per-event
-    # scalar plane.
+    # serving engine selection: "chunked" (default) uses the span-advance
+    # fast path in core/serving_kernels.py whenever the router has a
+    # bit-exact kernel mirror, and the per-event scalar plane otherwise;
+    # "event" forces the scalar plane (the parity oracle).
     serving_engine: str = "chunked"
     # prosumer microgrid layer (core/ledger.py): per-site battery /
     # sell-back spec (None = storage off; with storage off the ledger
@@ -536,17 +537,30 @@ class ClusterSimulator:
         if cfg.serving is not None and cfg.serving.enabled:
             from repro_torch.core.traces import stack_traces
 
-            if cfg.serving_engine == "chunked":
-                raise NotImplementedError(
-                    "the chunked serving fast path (serving_kernels.py) is "
-                    "not ported yet (ROADMAP Queue 1, item 11); pass "
-                    "serving_engine='event'")
-            self.serving = ServingPlane(
-                cfg.serving, make_router(cfg.serving_router),
-                n_sites=cfg.n_sites, days=cfg.days, seed=cfg.seed,
-                topo=self.wan_topology, traces=self.traces,
-                signals=self.signals, state_fn=self._serving_state,
-                ledger=self.ledger)
+            router = make_router(cfg.serving_router)
+            from repro_torch.core.serving_kernels import (
+                ChunkedServingPlane, supports_router)
+
+            if (cfg.serving_engine == "chunked"
+                    and supports_router(router)):
+                plane = ChunkedServingPlane(
+                    cfg.serving, router, n_sites=cfg.n_sites,
+                    days=cfg.days, seed=cfg.seed, topo=self.wan_topology,
+                    traces=self.traces, signals=self.signals,
+                    ledger=self.ledger)
+                plane.bind_context(
+                    forecast=self.forecast_horizon,
+                    mig_pairs_fn=lambda: [
+                        (j.site, j.transfer_dest)
+                        for j in self._by_state["migrating"].values()])
+                self.serving = plane
+            else:
+                self.serving = ServingPlane(
+                    cfg.serving, router,
+                    n_sites=cfg.n_sites, days=cfg.days, seed=cfg.seed,
+                    topo=self.wan_topology, traces=self.traces,
+                    signals=self.signals, state_fn=self._serving_state,
+                    ledger=self.ledger)
             self._serve_stack = stack_traces(self.traces)
             self._empty_soa = JobSoA.from_views([])
         # incremental (site, state) job index: jid-keyed dicts give

@@ -18,7 +18,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
-from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.checkpoint.manager import CheckpointInfo, CheckpointManager
 from repro_torch.data.pipeline import SyntheticLMDataset
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models.model import Model
@@ -58,6 +58,7 @@ class Trainer:
         self.opt_state = None
         self.step = 0
         self.history: List[Dict[str, float]] = []
+        self.saves: List[CheckpointInfo] = []  # every save's bytes and wall time
 
     # -- state ---------------------------------------------------------------
     def init_state(self):
@@ -80,7 +81,7 @@ class Trainer:
         return self.step
 
     def save(self):
-        self.ckpt.save(self.step, self.state_tree(), mode=self.cfg.ckpt_mode)
+        self.saves.append(self.ckpt.save(self.step, self.state_tree(), mode=self.cfg.ckpt_mode))
 
     # -- loop ----------------------------------------------------------------
     def run(self, max_steps: Optional[int] = None) -> Dict[str, Any]:

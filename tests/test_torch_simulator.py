@@ -104,17 +104,21 @@ def test_stochastic_feasible_matches_reference_numpy():
     assert bool(got) == bool(ref_fz.stochastic_feasible(5 * GB, 10e9, 3600.0, 900.0))
 
 
-def test_chunked_serving_is_not_ported():
-    """A serving run under the default chunked engine raises, naming the
-    ROADMAP item; the per-event plane runs."""
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port_sim.ClusterSimulator.from_scenario(
-            "train-plus-serve", "static", overrides=dict(days=1, n_jobs=10),
-            device="cpu")
+def test_chunked_engine_builds_the_chunked_plane():
+    """The default serving engine builds the chunked fast path; "event"
+    still builds the per-event plane."""
+    from repro_torch.core.serving import ServingPlane
+    from repro_torch.core.serving_kernels import ChunkedServingPlane
+
+    ov = dict(days=1, n_jobs=10)
     sim = port_sim.ClusterSimulator.from_scenario(
-        "train-plus-serve", "static",
-        overrides=dict(days=1, n_jobs=10, serving_engine="event"), device="cpu")
-    assert sim.serving is not None
+        "train-plus-serve", "static", overrides=ov, device="cpu")
+    assert sim.cfg.serving_engine == "chunked"
+    assert type(sim.serving) is ChunkedServingPlane
+    sim = port_sim.ClusterSimulator.from_scenario(
+        "train-plus-serve", "static", overrides=dict(ov, serving_engine="event"),
+        device="cpu")
+    assert type(sim.serving) is ServingPlane
 
 
 def test_device_reaches_k4_policies_only():
