@@ -64,7 +64,24 @@ Phases, each of which raises on failure:
                 and train_micro_lm at micro-lm-100m's full width (K1 and
                 its backward counted as derived, save times), then one
                 step of that model at the example's shape on the card
-                against device="cpu", profiled.
+                against device="cpu", profiled;
+ 11. archs  -- qwen3-1.7b, gemma2-2b and granite-moe-1b-a400m in bf16 at
+                full width, each drawn once on the card from seed 0: served
+                at full depth (prefill 2 x 512, gemma2's 1 x 4,608 so that
+                its 4,096-token window cuts; greedy decode, its steps'
+                logits held in float32 to the prefill of the same tokens;
+                a full-mode checkpoint whose restore gives bit-identical
+                logits), then cut to one layer group against device="cpu"
+                (forward and one train step, every gradient leaf held;
+                granite's CPU side routed as the card, its step also held
+                in float32) and its bf16 decode held to its prefill
+                (gemma2's 64 tokens past its window), granite-moe's
+                training lifecycle at 2 layers (migrated == unmigrated, one
+                int8 save and restore), and K1 and its backward in bf16 at
+                the three architectures' layer shapes, on inputs where
+                softcap and window decide the answer, held to the float32
+                plain version with controls and timed beside SDPA; every
+                run counted and held to the launches derived for it.
 Then one JSON line of per-kernel numbers, and last the ok line.  Nothing
 runs on the CPU in place of the card: without a card the script exits 1.
 """
@@ -90,6 +107,7 @@ import torch  # noqa: E402
 from repro_torch.checkpoint import serializer as ser  # noqa: E402
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import active_param_count, param_count  # noqa: E402
 from repro_torch.convert import (  # noqa: E402
     flatten_with_paths, params_from_numpy, params_to_numpy, tree_map)
 import numpy as np  # noqa: E402
@@ -113,8 +131,11 @@ from repro_torch.launch import dryrun as dryrun_launcher  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.launch.serve import greedy_decode  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
-from repro_torch.optim.adamw import AdamWConfig, apply_updates, init_opt_state  # noqa: E402
+from repro_torch.optim.adamw import (  # noqa: E402
+    AdamWConfig, apply_updates, global_norm, init_opt_state)
 from repro_torch.train.train_step import TrainStepConfig, make_train_step, value_and_grad  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
@@ -294,6 +315,61 @@ CARBON_SLO_DIGITS = FLEET_DIGITS + SERVING_DIGITS
 # repro_torch.examples.train_micro_lm --steps N``; PERF.md), so the depth is
 # not cut.
 EXAMPLE_STEPS = 300
+# The [archs] phase: the assigned architectures the port runs, in bf16 at
+# full width, their random weights drawn on the card from seed 0.
+ARCHS = ("qwen3-1.7b", "gemma2-2b", "granite-moe-1b-a400m")
+# Serving at full depth: a prefill of 2 x 512 tokens, gemma2's of 1 x 4,608
+# so that its 4,096-token window cuts; greedy decode of 16 new tokens on a
+# 2 x 32 prompt.
+ARCH_PREFILL = {"gemma2-2b": (1, 4608)}
+ARCH_PREFILL_DEFAULT = (2, 512)
+ARCH_PROMPT, ARCH_NEW = (2, 32), 16
+# Card against device="cpu": full width, depth cut to one layer group
+# (gemma2: one local and one global layer), 2 x 64 tokens; bf16 on both
+# sides, so the repo's bf16 tolerance (CARD_CPU_BF16_TOL) as a share of the
+# largest element, for the logits as for the gradients: each of the 19-33 M
+# logits is a 2,048-2,304-term dot product of a bf16 hidden state (each
+# element rounded in other places on the two sides, ~2^-9 relative) with a
+# table row, so the largest of their differences is the tail of that
+# spread, not a bf16 step of the logit it lands on.
+ARCH_CARD_CPU_SEQ = 64
+# bf16 decode at one layer group: 2 x ARCH_CARD_CPU_SEQ tokens fed step by
+# step, or for gemma2 one sequence of this many tokens beyond its
+# 4,096-token window, so the local layer's ring-buffer cache wraps.
+ARCH_PAST_WINDOW = 64
+# granite-moe's training lifecycle: full width, depth cut to 2 layers (the
+# training state, bf16 params and float32 master / m / v, ~2.2 GB); site A
+# trains to step 6 with a checkpoint every 3 steps and is preempted; site B
+# finishes at 12.
+MOE_ARCH, MOE_LIFE_LAYERS = "granite-moe-1b-a400m", 2
+MOE_LIFE_STEPS, MOE_LIFE_PREEMPT, MOE_LIFE_SAVE_EVERY = 12, 6, 3
+# K1 in bf16 at the architectures' own layer shapes (b, s, t, nh, nkv, hd,
+# mask, window, softcap): qwen3's prefill, gemma2's local and global layers
+# over its 4,608-token prefill (softcap 50), granite's prefill.
+ARCH_FLASH_CASES = {
+    "qwen3-1.7b": (2, 512, 512, 16, 8, 128, "causal", 0, 0.0),
+    "gemma2-2b local": (1, 4608, 4608, 8, 4, 256, "window", 4096, 50.0),
+    "gemma2-2b global": (1, 4608, 4608, 8, 4, 256, "causal", 0, 50.0),
+    "granite-moe-1b-a400m": (2, 512, 512, 16, 8, 64, "causal", 0, 0.0),
+}
+# These shapes are held on inputs where the softcap and the mask's edge
+# decide the answer.  Q is scaled by ARCH_FLASH_Q_SCALE, so the scores
+# q.k / sqrt(hd) spread with std ~8 and reach ~30, where softcap 50 takes
+# 50 tanh(30 / 50) = 26.9.  Each key on the mask's edge is turned toward
+# the first query row of its group's first head that must see it and the
+# first that must not (ARCH_FLASH_EDGE unit vectors of those rows, ~48
+# added to both scores, 37 after the cap): the key then takes most of the
+# one row's weight and must take none of the other's.  Scores of ~30 in
+# bf16 are rounded to 1/8, which moves their weights by up to 6%, so the
+# bf16 plain version is no reference here: the kernel is held to the
+# plain version in float32 on the same bf16 inputs, its output within
+# FLASH_BF16_TOL of the largest |output| and each gradient within
+# GRAD_BF16_TOL of its largest (the kernel keeps S and dP in float32 and
+# rounds P, dS and what it writes to bf16, 2^-9 relative each).  Controls,
+# on the same inputs and against the same limit: the float32 plain version
+# with softcap 0, and with the window one key shorter and one key longer,
+# must each miss it in the output and in every gradient.
+ARCH_FLASH_Q_SCALE, ARCH_FLASH_EDGE = 8.0, 6.0
 # K4 at the upper fleet shape: 131,072 jobs x 100 sites (104 padded), one cell
 UPPER_JOBS, UPPER_SITES = 131072, 100
 # A cell of more sites than K4 stages at a time (128): 1,024 jobs x 300 sites
@@ -454,7 +530,7 @@ def step_launches(cfg, remat_policy: str) -> dict:
     per attention layer in the forward and once more in remat's recompute
     (its custom Function is no matmul, so "dots" reruns it too), the
     backward kernel once per layer; counted under the model's type."""
-    layers = cfg.num_groups * sum(kind == "attn" for kind in cfg.block_pattern)
+    layers = cfg.num_layers  # every ported block kind is attention
     k1 = layers * (1 if remat_policy == "none" else 2)
     tag = "_bf16" if cfg.dtype == "bfloat16" else ""
     out = dict.fromkeys(ops.launch_counts(), 0)
@@ -494,6 +570,8 @@ class TrainResult:
     manager_b: CheckpointManager
     raw_b: bytes  # the checkpoint site B restored
     launches: dict  # segment -> (counted, expected)
+    steps: int  # site A trains to ``preempt``, site B on to ``steps``
+    preempt: int
     nbytes: int
     verdict: feasibility.FeasibilityVerdict
     report: object
@@ -505,15 +583,16 @@ class TrainResult:
 
 
 def run_train_lifecycle(cfg, workdir, *, mode, grad_compress, device, batch=TRAIN_BATCH,
-                        seq=TRAIN_SEQ, reference=True) -> TrainResult:
-    """Train at site A until preempted, gate on the measured checkpoint,
-    migrate_job, restore at site B on ``device`` and finish there; with
-    ``reference``, first an unmigrated run of all the steps.  Each stretch
-    runs with the launch counters set to 0 just before it and read just
-    after, beside the counts ``train_launches`` derives for it."""
+                        seq=TRAIN_SEQ, reference=True, steps=TRAIN_STEPS, preempt=TRAIN_PREEMPT,
+                        save_every=TRAIN_SAVE_EVERY) -> TrainResult:
+    """Train at site A until preempted at step ``preempt`` (a checkpoint
+    every ``save_every`` steps), gate on the measured checkpoint,
+    migrate_job, restore at site B on ``device`` and finish there at
+    ``steps``; with ``reference``, first an unmigrated run of all the steps.
+    Each stretch runs with the launch counters set to 0 just before it and
+    read just after, beside the counts ``train_launches`` derives for it."""
     dev = resolve(device)
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
-    steps, preempt, save_every = TRAIN_STEPS, TRAIN_PREEMPT, TRAIN_SAVE_EVERY
     launches = {}
 
     def segment(name, fn, expect):
@@ -562,8 +641,8 @@ def run_train_lifecycle(cfg, workdir, *, mode, grad_compress, device, batch=TRAI
     if status_b["status"] != "done" or status_b["step"] != steps:
         raise RuntimeError(f"site B: {status_b}, expected done at step {steps}")
     return TrainResult(mode, grad_compress, a.history + b.history, a.state_tree(), state_b0,
-                       b.params, params_ref, dst, raw_b, launches, nbytes, verdict, report, save_s,
-                       migrate_s, restore_s, run_a_s, run_b_s)
+                       b.params, params_ref, dst, raw_b, launches, steps, preempt, nbytes, verdict,
+                       report, save_s, migrate_s, restore_s, run_a_s, run_b_s)
 
 
 def run_train_steps(cfg, params, batches, *, device, profile=False):
@@ -1312,45 +1391,71 @@ def check_card_vs_cpu(cfg, params, dev, *, seq=TRAIN_SEQ, steps=2, tag="[train]"
 def check_bf16_train(cfg, params, dev) -> dict:
     """One step of micro-lm in bf16 (the type every other assigned
     architecture trains in: K1 and its backward in bf16), its weights cast
-    to bf16, on the card against the same step through device="cpu": loss,
-    grad norm and the first step's gradients; the step's launches exactly
-    as derived.  Returns them."""
+    to bf16, on the card against the same step through device="cpu"
+    (check_bf16_step).  Returns its launches."""
     cfg16 = replace(cfg, dtype="bfloat16")
     p16 = tree_map(lambda x: x.to(torch.bfloat16), params)
-    batches = [SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, CARD_CPU_BATCH).batch(0)]
+    batch = SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, CARD_CPU_BATCH).batch(0)
+    return check_bf16_step(cfg16, p16, dev, batch, "[train] micro-lm in bf16")
+
+
+def check_bf16_step(cfg, params, dev, batch, what: str, *, moe_routes=None) -> dict:
+    """One train step of the bf16 model ``cfg`` from ``params`` on the card
+    against the same step's loss, gradients and grad norm through
+    device="cpu", each gradient leaf in its own type (a MoE router's
+    float32); the step's launches exactly as derived.  With ``moe_routes``
+    (a list), the card's step records its MoE layer's expert choice there
+    and the CPU side routes every token as the card did (expert_choice).
+    Returns the launches."""
+    rec = [] if moe_routes is None else moe_routes
+    with expert_choice(rec) if moe_routes is not None else contextlib.nullcontext():
+        g_card, (m_card,), counts, _ = run_train_steps(cfg, params, [batch], device=dev)
+    force = None
+    if moe_routes is not None:
+        force = rec[0]
+        if any(not torch.equal(r, force) for r in rec):
+            raise RuntimeError(f"{what}: the card's step chose other experts in another MoE call "
+                               "(one MoE layer expected)")
     t0 = time.perf_counter()
-    g_cpu, (m_cpu,), _, _ = run_train_steps(cfg16, p16, batches, device="cpu")
+    # the CPU side: the step's loss, gradients and grad norm, without its
+    # AdamW update (at full width the CPU's bf16 update costs seconds)
+    with expert_choice([], force=force) if force is not None else contextlib.nullcontext():
+        (loss, _), g_cpu = value_and_grad(build_model(cfg), tree_map(lambda x: x.cpu(), params),
+                                          {k: torch.from_numpy(v) for k, v in batch.items()}, "full")
+    m_cpu = {"loss": float(loss), "grad_norm": float(global_norm(g_cpu))}
     cpu_s = time.perf_counter() - t0
-    g_card, (m_card,), counts, _ = run_train_steps(cfg16, p16, batches, device=dev)
-    expect = step_launches(cfg16, "full")
+    expect = step_launches(cfg, "full")
     if counts != expect:
-        raise RuntimeError(f"bf16 train step: launch counts {counts}, expected {expect}")
+        raise RuntimeError(f"{what} train step: launch counts {counts}, expected {expect}")
     parts = []
     for key in ("loss", "grad_norm"):
         rel = abs(m_card[key] - m_cpu[key]) / abs(m_cpu[key])
         if not rel <= CARD_CPU_BF16_TOL:
-            raise RuntimeError(f"bf16 step {key} on the card {m_card[key]} vs the CPU {m_cpu[key]}: "
-                               f"relative {rel:.3e} beyond {CARD_CPU_BF16_TOL}")
+            raise RuntimeError(f"{what} step {key} on the card {m_card[key]} vs the CPU "
+                               f"{m_cpu[key]}: relative {rel:.3e} beyond {CARD_CPU_BF16_TOL}")
         parts.append(f"{key} {m_card[key]:.6f} (rel {rel:.2e})")
     cpu_of = dict(flatten_with_paths(g_cpu))
-    worst = 0.0
+    params_of = dict(flatten_with_paths(params))
+    worst, worst_path = 0.0, ""
     for path, g in flatten_with_paths(g_card):
         want = cpu_of[path].float()
-        if g.dtype != torch.bfloat16 or not bool(torch.isfinite(g).all()):
-            raise RuntimeError(f"bf16 gradient {'/'.join(path)}: {g.dtype} or not finite")
+        if g.dtype != params_of[path].dtype or not bool(torch.isfinite(g).all()):
+            raise RuntimeError(f"{what} gradient {'/'.join(path)}: {g.dtype} or not finite")
         share = float((g.float().cpu() - want).abs().max()) / (CARD_CPU_BF16_TOL * float(want.abs().max()))
         if not share <= 1.0:
-            raise RuntimeError(f"bf16 first-step gradient {'/'.join(path)} on the card vs the CPU: "
+            raise RuntimeError(f"{what} first-step gradient {'/'.join(path)} on the card vs the CPU: "
                                f"{100 * share:.1f}% of {CARD_CPU_BF16_TOL} x its max")
-        worst = max(worst, share)
-    log(f"[train] micro-lm in bf16, card vs device='cpu', one step on {CARD_CPU_BATCH} x "
-        f"{TRAIN_SEQ} tokens (CPU {cpu_s:.1f} s): {'; '.join(parts)}; first-step gradients within "
-        f"{CARD_CPU_BF16_TOL} x each leaf's max, at most {100 * worst:.1f}% of it (tol "
-        f"{CARD_CPU_BF16_TOL}); launches {counts}, as derived")
+        if share > worst:
+            worst, worst_path = share, "/".join(path)
+    b, s = batch["tokens"].shape
+    routed = "; the CPU side routed as the card" if force is not None else ""
+    log(f"{what}, card vs device='cpu', one step on {b} x {s} tokens (CPU {cpu_s:.1f} s{routed}): "
+        f"{'; '.join(parts)}; first-step gradients within {CARD_CPU_BF16_TOL} x each leaf's max, "
+        f"at most {100 * worst:.1f}% of it ({worst_path}); launches {counts}, as derived")
     return counts
 
 
-def check_train_lifecycle(res: TrainResult) -> dict:
+def check_train_lifecycle(res: TrainResult, tag: str = "[train]") -> dict:
     """The lifecycle's launch counts, falling loss, restored state and (full
     mode) final params against the unmigrated run.  Returns the summed
     launches of its runs."""
@@ -1360,7 +1465,7 @@ def check_train_lifecycle(res: TrainResult) -> dict:
             raise RuntimeError(f"{res.mode}: launch counts of {name} {got}, expected {want}")
         total = {k: total.get(k, 0) + v for k, v in got.items()}
     losses = [row["loss"] for row in res.history]
-    if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+    if len(losses) != res.steps or not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise RuntimeError(f"{res.mode}: losses {losses} do not fall")
     a_of = dict(flatten_with_paths(res.state_a))
     if res.mode == "full":
@@ -1387,15 +1492,15 @@ def check_train_lifecycle(res: TrainResult) -> dict:
             raise RuntimeError(f"migrated final params differ from the unmigrated run's by {diff}")
         migrated = f"; final params vs the unmigrated run: max abs diff {diff:.3e} (tol {MIGRATION_TOL})"
     v = res.verdict
-    tag = f"{res.mode}{' + grad_compress' if res.grad_compress else ''}"
-    log(f"[train] {tag}: site A {TRAIN_PREEMPT} steps {res.run_a_s:.2f} s, preempted; checkpoint "
+    what = f"{res.mode}{' + grad_compress' if res.grad_compress else ''}"
+    log(f"{tag} {what}: site A {res.preempt} steps {res.run_a_s:.2f} s, preempted; checkpoint "
         f"{res.nbytes} B saved in {res.save_s:.3f} s; gate: class {int(v.workload_class)}, "
         f"t_transfer {float(v.t_transfer_s):.4f} s, t_cost {float(v.t_cost_s):.4f} s, feasible "
         f"{bool(v.feasible)}; migrate {res.migrate_s:.3f} s; restore {res.restore_s:.3f} s, "
-        f"{restored}; site B {TRAIN_STEPS - TRAIN_PREEMPT} steps {res.run_b_s:.2f} s; loss "
-        f"{losses[0]:.4f} -> {losses[TRAIN_PREEMPT - 1]:.4f} -> {losses[-1]:.4f}{migrated}")
+        f"{restored}; site B {res.steps - res.preempt} steps {res.run_b_s:.2f} s; loss "
+        f"{losses[0]:.4f} -> {losses[res.preempt - 1]:.4f} -> {losses[-1]:.4f}{migrated}")
     for name, (got, _) in res.launches.items():
-        log(f"[train]   {tag} {name}: launches {got}, as derived")
+        log(f"{tag}   {what} {name}: launches {got}, as derived")
     return total
 
 
@@ -1675,6 +1780,522 @@ def phase_examples(dev) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# The assigned architectures: qwen3-1.7b, gemma2-2b, granite-moe-1b-a400m
+# ---------------------------------------------------------------------------
+
+
+def cut_depth(cfg, params, groups: int):
+    """The first ``groups`` layer groups of a model: (its config, its params,
+    whose group leaves are views of the full model's)."""
+    cut = replace(cfg, num_layers=groups * len(cfg.block_pattern))
+    return cut, {**params, "groups": tree_map(lambda x: x[:groups], params["groups"])}
+
+
+def visible_pairs(s: int, mask: str, window: int) -> int:
+    """(query, key) pairs a self-attention over ``s`` positions computes."""
+    if mask == "full":
+        return s * s
+    w = min(window, s) if mask == "window" and window > 0 else s
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+class DecodeLogits:
+    """A Model whose decode_step also keeps each step's logits, for
+    greedy_decode to drive: ``logits()`` gives them as (b, steps, vocab)."""
+
+    def __init__(self, model):
+        self.model, self.steps = model, []
+
+    def init_cache(self, *args, **kwargs):
+        return self.model.init_cache(*args, **kwargs)
+
+    def decode_step(self, params, cache, batch):
+        logits, cache = self.model.decode_step(params, cache, batch)
+        self.steps.append(logits)
+        return logits, cache
+
+    def logits(self) -> torch.Tensor:
+        return torch.stack(self.steps, dim=1)
+
+
+def decode_share(decoded: torch.Tensor, prefill: torch.Tensor) -> tuple:
+    """(max abs difference of the decode steps' logits from the prefill's
+    at the same positions, its share of MODEL_BF16_TOL x max|prefill logit|)."""
+    err = max_diff(decoded, prefill)
+    return err, err / (MODEL_BF16_TOL * float(prefill.float().abs().max()))
+
+
+@dataclass
+class ArchServeResult:
+    logits: torch.Tensor
+    logits_restored: torch.Tensor  # the prefill from the restored params
+    tokens: torch.Tensor
+    decode_logits: torch.Tensor  # each decode step's, (b, prompt + new - 1, vocab)
+    logits_decoded: torch.Tensor  # the prefill of the decoded tokens but the last
+    launches: dict  # segment -> counts
+    prefill_s: float  # the second (warm) prefill
+    decode_s: float
+    nbytes: int
+    save_s: float
+    restore_s: float
+    restored_equal: bool  # every leaf, dtype and bits
+
+
+def run_arch_serving(cfg, params, prompts, decode_prompts, workdir, *, max_new,
+                     device) -> ArchServeResult:
+    """Serve ``cfg`` through the port's entry points on ``device``: prefill
+    (Model.forward) twice, greedy decode of ``max_new`` tokens after
+    ``decode_prompts`` (its steps' logits kept) and the prefill of the
+    decoded tokens, a full-mode checkpoint of the params, its restore, and
+    the prefill from the restored params; each segment with the launch
+    counters set to 0 just before it and read just after.  The checkpoint
+    is deleted before returning."""
+    dev = resolve(device)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    model = build_model(cfg)
+    launches = {}
+
+    def segment(name, fn):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        launches[name] = ops.launch_counts()
+        return out, time.perf_counter() - t0
+
+    (logits, _), _ = segment("prefill", lambda: model.forward(params, {"tokens": prompts}))
+    _, prefill_s = segment("prefill again", lambda: model.forward(params, {"tokens": prompts}))
+    cache_len = decode_prompts.shape[1] + max_new
+    rec = DecodeLogits(model)
+    tokens, decode_s = segment("decode", lambda: greedy_decode(
+        rec, params, decode_prompts, max_new, cache_len))
+    (logits_d, _), _ = segment("prefill decoded", lambda: model.forward(
+        params, {"tokens": tokens[:, :-1]}))
+    root = os.path.join(workdir, cfg.name)
+    mgr = CheckpointManager(root, job=cfg.name, mode="full")
+    _, save_s = segment("save", lambda: mgr.save(0, params))
+    (back, _), restore_s = segment("restore", lambda: mgr.restore(params, device=dev))
+    (logits_b, _), _ = segment("prefill restored", lambda: model.forward(back, {"tokens": prompts}))
+    equal = all(x.dtype == y.dtype and torch.equal(x, y) for (_, x), (_, y)
+                in zip(flatten_with_paths(back), flatten_with_paths(params)))
+    nbytes = mgr.latest_bytes
+    shutil.rmtree(root)
+    return ArchServeResult(logits, logits_b, tokens, rec.logits(), logits_d, launches, prefill_s,
+                           decode_s, nbytes, save_s, restore_s, equal)
+
+
+def check_arch_serving(res: ArchServeResult, cfg, prompts, decode_prompts) -> dict:
+    """Launches as derived (K1 bf16 once per layer a prefill, none in
+    decode or the full-mode checkpoint), finite logits of the right shape,
+    decoded tokens in the vocabulary after their prompt, and the restore
+    exact: every leaf and the prefill's logits bit for bit (the decode's
+    logits are held by check_arch_decode).  Returns the launches, summed."""
+    total = {}
+    for name, got in res.launches.items():
+        k1 = cfg.num_layers if name.startswith("prefill") else 0
+        if got != exactly(got, flash_attention_bf16=k1):
+            raise RuntimeError(f"{cfg.name} {name}: launch counts {got}, expected K1 bf16 {k1} only")
+        total = {k: total.get(k, 0) + v for k, v in got.items()}
+    b, s = prompts.shape
+    if res.logits.shape != (b, s, cfg.vocab_size) or not bool(torch.isfinite(res.logits).all()):
+        raise RuntimeError(f"{cfg.name} prefill logits: shape {tuple(res.logits.shape)} or not finite")
+    n = decode_prompts.shape[1]
+    toks = res.tokens
+    if toks.shape != (decode_prompts.shape[0], n + ARCH_NEW) or not torch.equal(toks[:, :n], decode_prompts):
+        raise RuntimeError(f"{cfg.name} decode tokens: shape {tuple(toks.shape)} or prompt lost")
+    if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise RuntimeError(f"{cfg.name} decode produced out-of-vocab tokens")
+    if not res.restored_equal or not torch.equal(res.logits_restored, res.logits):
+        raise RuntimeError(f"{cfg.name}: the full-mode checkpoint's restore is not exact")
+    return total
+
+
+@contextlib.contextmanager
+def expert_choice(record: list, force=None):
+    """Inside, each MoE top-k expert selection (moe.topk_stable, as
+    moe.router_probs calls it) appends its (b, s, k) experts to ``record``;
+    with ``force``, it picks those experts instead, each with the layer's
+    own probability as its gate (renormalised by router_probs as ever)."""
+    real = moe_lib.topk_stable
+
+    def choose(x, k):
+        if force is None:
+            vals, idx = real(x, k)
+        else:
+            idx = force.to(x.device)
+            if idx.shape != (*x.shape[:-1], k):
+                raise RuntimeError(f"forced experts {tuple(idx.shape)} for a top-{k} of {tuple(x.shape)}")
+            vals = torch.gather(x, -1, idx)
+        record.append(idx.cpu())
+        return vals, idx
+
+    moe_lib.topk_stable = choose
+    try:
+        yield
+    finally:
+        moe_lib.topk_stable = real
+
+
+def routing_flips(card: list, cpu: list) -> int:
+    """Tokens whose expert set differs between two records of
+    expert_choice (their first selections)."""
+    a, b = (torch.sort(r[0], dim=-1).values for r in (card, cpu))
+    return int((a != b).any(-1).sum())
+
+
+def check_arch_card_vs_cpu(cfg, params, dev) -> dict:
+    """The model cut to one layer group at full width, on 2 x 64 tokens, on
+    the card against device="cpu": the forward's logits within
+    CARD_CPU_BF16_TOL of the largest |logit| (how the step's gradients are
+    held), beside both sides' distance from the float32 forward of the same
+    weights on the CPU (not a gate); then one train step (check_bf16_step).
+    Returns the launches of both, summed."""
+    cut, p = cut_depth(cfg, params, 1)
+    batch = SyntheticLMDataset(cfg.vocab_size, ARCH_CARD_CPU_SEQ, CARD_CPU_BATCH).batch(0)
+    toks = torch.from_numpy(batch["tokens"]).long()
+    model = build_model(cut)
+    card_routes, cpu_routes = [], []
+    with expert_choice(card_routes):
+        (card, _), counts, _ = counted(lambda: model.forward(p, {"tokens": toks.to(dev)}))
+    if counts != exactly(counts, flash_attention_bf16=cut.num_layers):
+        raise RuntimeError(f"{cut.name} forward: launch counts {counts}")
+    host = tree_map(lambda x: x.cpu(), p)
+    with expert_choice(cpu_routes):
+        plain, _ = model.forward(host, {"tokens": toks})
+    card, plain = card.float().cpu(), plain.float()
+    err, top = float((card - plain).abs().max()), float(plain.abs().max())
+    share = err / (CARD_CPU_BF16_TOL * top)
+    if not share <= 1.0:
+        raise RuntimeError(f"{cut.name} forward on the card vs the CPU: max abs err {err}, "
+                           f"{100 * share:.1f}% of {CARD_CPU_BF16_TOL} x max|logit| {top}")
+    exact, _ = build_model(replace(cut, dtype="float32")).forward(
+        tree_map(lambda x: x.float(), host), {"tokens": toks})
+    log(f"[archs] {cfg.name} cut to {cut.num_layers} layer(s) at full width, {CARD_CPU_BATCH} x "
+        f"{ARCH_CARD_CPU_SEQ} tokens: forward logits vs device='cpu' max abs err {err:.3e}, "
+        f"{100 * share:.1f}% of {CARD_CPU_BF16_TOL} x max|logit| ({top:.3f}); from the float32 "
+        f"forward: card {float((card - exact).abs().max()):.3e}, plain "
+        f"{float((plain - exact).abs().max()):.3e}; launches {counts}")
+    what = f"[archs] {cut.name} cut to {cut.num_layers} layer(s)"
+    if not cut.moe:
+        step = check_bf16_step(cut, p, dev, batch, what)
+        return {k: counts[k] + step[k] for k in counts}
+    # MoE: top-k routing is discontinuous, so a token whose k-th and
+    # (k+1)-th router probabilities lie closer than the two sides' bf16
+    # rounding apart goes to another expert on each side, and the experts'
+    # gradients then differ by that token's whole contribution.  The bf16
+    # step's CPU side therefore routes every token as the card's step did,
+    # each gate still its own router's probability, and every leaf is held;
+    # the same step in float32, where the routing agrees unforced, is held
+    # leaf by leaf as well.
+    groups = cut.num_layers // len(cut.block_pattern)
+    if groups * sum(tfm._is_moe_pos(cut, i) for i in range(len(cut.block_pattern))) != 1:
+        raise RuntimeError(f"{what}: one MoE layer expected, so that one expert choice routes it")
+    log(f"{what}: {routing_flips(card_routes, cpu_routes)} of {toks.numel()} tokens routed to "
+        f"other experts on the card than on the CPU in bf16 (the MoE layer's top-{cut.top_k} "
+        f"dispatch, unforced)")
+    step = check_bf16_step(cut, p, dev, batch, what, moe_routes=[])
+    total = {k: counts[k] + step[k] for k in counts}
+    cut32 = replace(cut, dtype="float32")
+    p32 = tree_map(lambda x: x.float(), p)
+    card32, cpu32 = [], []
+    with expert_choice(card32):
+        counted(lambda: build_model(cut32).forward(p32, {"tokens": toks.to(dev)}))
+    with expert_choice(cpu32):
+        build_model(cut32).forward(tree_map(lambda x: x.cpu(), p32), {"tokens": toks})
+    flips32 = routing_flips(card32, cpu32)
+    if flips32:
+        raise RuntimeError(f"{what} in float32: {flips32} tokens routed differently")
+    check_card_vs_cpu(cut32, p32, dev, seq=ARCH_CARD_CPU_SEQ, steps=1, tag="[archs] float32,")
+    step32 = step_launches(cut32, "full")  # check_card_vs_cpu held its launches to these
+    return {k: total[k] + step32[k] for k in total}
+
+
+def check_arch_decode(cfg, params, res: ArchServeResult, dev) -> dict:
+    """The full-depth decode's logits, in float32: a float32 copy of the
+    weights decodes the served tokens but the last step by step
+    (greedy_decode fed every one), and each step's logits must equal the
+    float32 prefill of the same tokens within DECODE_TOL, the reference's
+    own prefill / decode tolerance.  In bf16, rounding through a full
+    depth of random weights moves logits by more than MODEL_BF16_TOL of
+    the largest in either path, so the served bf16 decode's and prefill's
+    logits are reported, each against the float32 prefill, and the bf16
+    decode is held at one layer group (check_cut_decode).  Returns the
+    launches (the float32 prefill's K1)."""
+    cfg32 = replace(cfg, dtype="float32")
+    p32 = tree_map(lambda x: x.float(), params)
+    model = build_model(cfg32)
+    toks = res.tokens[:, :-1]
+    rec = DecodeLogits(model)
+    _, dec, _ = counted(lambda: greedy_decode(rec, p32, toks, 1, toks.shape[1] + 1))
+    (want, _), pre, _ = counted(lambda: model.forward(p32, {"tokens": toks}))
+    if dec != exactly(dec) or pre != exactly(pre, flash_attention=cfg.num_layers):
+        raise RuntimeError(f"{cfg.name} float32 decode / prefill launches {dec} / {pre}")
+    got = rec.logits()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, atol=DECODE_TOL, rtol=DECODE_TOL):
+        raise RuntimeError(f"{cfg.name} float32 decode vs prefill at full depth: max abs err {err} "
+                           f"beyond {DECODE_TOL}")
+    top = float(want.abs().max())
+    log(f"[archs] {cfg.name} decode at full depth in float32: {toks.shape[0]} x {toks.shape[1]} "
+        f"steps within {DECODE_TOL} of the float32 prefill of the same tokens (max abs err "
+        f"{err:.3e}); served in bf16, max abs distance from that float32 prefill (max|logit| "
+        f"{top:.3f}): the bf16 decode {max_diff(res.decode_logits, want):.3e}, the bf16 prefill "
+        f"{max_diff(res.logits_decoded, want):.3e}, and between the two "
+        f"{max_diff(res.decode_logits, res.logits_decoded):.3e}; launches {pre}")
+    del p32, rec
+    return pre
+
+
+def max_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def check_cut_decode(cfg, params, dev) -> dict:
+    """The bf16 decode at one layer group at full width: step by step
+    (greedy_decode fed every token) over 2 x ARCH_CARD_CPU_SEQ tokens, or,
+    for a model with local layers, over one sequence ARCH_PAST_WINDOW
+    tokens longer than its window, so the local layers' ring-buffer cache
+    wraps; each step's logits within MODEL_BF16_TOL of the largest |logit|
+    of the prefill of the same tokens (where K1's window cuts).  Returns
+    the launches (K1 bf16 once a layer in the prefill, none in decode)."""
+    cut, p = cut_depth(cfg, params, 1)
+    local = "attn_local" in cut.block_pattern
+    b, n = (1, cut.sliding_window + ARCH_PAST_WINDOW) if local else (CARD_CPU_BATCH, ARCH_CARD_CPU_SEQ)
+    toks = torch.from_numpy(
+        SyntheticLMDataset(cut.vocab_size, n, b, seed=4).batch(0)["tokens"]).long().to(dev)
+    model = build_model(cut)
+    rec = DecodeLogits(model)
+    _, dec, dec_s = counted(lambda: greedy_decode(rec, p, toks, 1, n + 1))
+    (prefill, _), pre, _ = counted(lambda: model.forward(p, {"tokens": toks}))
+    if dec != exactly(dec) or pre != exactly(pre, flash_attention_bf16=cut.num_layers):
+        raise RuntimeError(f"{cut.name} decode / prefill launches {dec} / {pre}")
+    decoded = rec.logits()
+    err, share = decode_share(decoded, prefill)
+    if not share <= 1.0:
+        raise RuntimeError(f"{cut.name} bf16 decode at one layer group vs the prefill: max abs err "
+                           f"{err}, {100 * share:.1f}% of {MODEL_BF16_TOL} x max|logit|")
+    past = ""
+    if local:
+        w = cut.sliding_window
+        past_err, past_share = decode_share(decoded[:, w:], prefill[:, w:])
+        past = (f"; past the {w}-token window ({ARCH_PAST_WINDOW} steps) {past_err:.3e}, "
+                f"{100 * past_share:.1f}%")
+    log(f"[archs] {cfg.name} cut to {cut.num_layers} layer(s) at full width, bf16 decode of {b} x "
+        f"{n} tokens in {dec_s:.1f} s: every step's logits within {MODEL_BF16_TOL} x max|logit| of "
+        f"the prefill of the same tokens (max abs err {err:.3e}, {100 * share:.1f}% of it{past}); "
+        f"launches: decode none, prefill {pre}")
+    return pre
+
+
+def run_moe_lifecycle(cfg, dev, work) -> dict:
+    """granite-moe cut to MOE_LIFE_LAYERS at full width through the
+    training lifecycle (run_train_lifecycle, full mode, against an
+    unmigrated run), then one int8 save and restore of site A's state at
+    preemption, held to the CPU plain dequantize of the same bytes.
+    Returns the launches, summed."""
+    cut = replace(cfg, num_layers=MOE_LIFE_LAYERS)
+    d = os.path.join(work, "lifecycle")
+    res = run_train_lifecycle(cut, d, mode="full", grad_compress=False, device=dev,
+                              steps=MOE_LIFE_STEPS, preempt=MOE_LIFE_PREEMPT,
+                              save_every=MOE_LIFE_SAVE_EVERY)
+    total = check_train_lifecycle(res, tag="[archs]")
+    state = res.state_a
+    floats = sum(1 for _, x in flatten_with_paths(state)
+                 if isinstance(x, torch.Tensor) and x.is_floating_point())
+    mgr = CheckpointManager(os.path.join(d, "int8"), job=cut.name, mode="int8")
+    info, saved, save_s = counted(lambda: mgr.save(res.preempt, state))
+    (back, _), restored, restore_s = counted(lambda: mgr.restore(state, device=dev))
+    if saved != exactly(saved, quantize_int8=floats) or \
+            restored != exactly(restored, dequantize_int8=floats):
+        raise RuntimeError(f"int8 save / restore launches {saved} / {restored}, expected {floats} "
+                           f"K2 / K3")
+    plain = ser.deserialize_tree(ser.from_bytes(mgr.export_bytes()), state, device="cpu")
+    gap = 0.0
+    for (path, x), (_, y), (_, z) in zip(flatten_with_paths(back), flatten_with_paths(plain),
+                                         flatten_with_paths(state)):
+        z = torch.as_tensor(z)
+        if x.dtype != z.dtype or not torch.equal(x.cpu(), y):
+            raise RuntimeError(f"int8 restore of {'/'.join(path)}: {x.dtype} (saved {z.dtype}) or "
+                               f"differs from the CPU plain dequantize of the same bytes")
+        if x.is_floating_point():
+            gap = max(gap, float((x.float() - z.to(x.device).float()).abs().max()))
+    log(f"[archs] {cut.name} int8 save of the state at step {res.preempt} ({res.nbytes} B in full "
+        f"mode): {info.nbytes} B in {save_s:.3f} s, restore {restore_s:.3f} s; K2 {floats}, K3 "
+        f"{floats} launches as derived; restored bit-identical to the CPU plain dequantize of "
+        f"the same bytes, max abs {gap:.3e} from the saved state")
+    for c in (saved, restored):
+        total = {k: total.get(k, 0) + v for k, v in c.items()}
+    del res, state, back, plain
+    shutil.rmtree(d)
+    return total
+
+
+def arch_flash_inputs(gen, case, dev) -> tuple:
+    """(q, k, v, do) in bf16 on ``dev`` for K1's case ``case``: randn, q
+    times ARCH_FLASH_Q_SCALE, and each key on the mask's edge turned toward
+    the query row that must see it and the one that must not (the first
+    head of its group), as ARCH_FLASH_Q_SCALE's comment says."""
+    b, s, t, nh, nkv, hd, mask, win, _ = case
+    q = randn(gen, (b, s, nh, hd), "cpu", ARCH_FLASH_Q_SCALE)
+    k, v = (randn(gen, (b, t, nkv, hd), "cpu") for _ in range(2))
+    do = randn(gen, (b, s, nh, hd), "cpu")
+    if mask != "full":
+        # distance (query - key) of the last key a row sees, and of the first it must not
+        edge = (win - 1, win) if mask == "window" and win > 0 else (0, -1)
+        lead = q[:, :, ::nh // nkv]  # the first head of each group: (b, s, nkv, hd)
+        unit = lead / lead.norm(dim=-1, keepdim=True)
+        keys = torch.arange(t)
+        for d in edge:
+            rows = keys + d
+            ok = (rows >= 0) & (rows < s)
+            k[:, keys[ok]] += ARCH_FLASH_EDGE * unit[:, rows[ok]]
+    return tuple(x.to(dev, torch.bfloat16) for x in (q, k, v, do))
+
+
+def _shares(got, want, tol) -> list:
+    """Each of ``got``'s max abs differences from ``want`` as a share of
+    ``tol`` x the largest |element| of its ``want``."""
+    return [float((g.float() - w).abs().max()) / (tol * float(w.abs().max()))
+            for g, w in zip(got, want)]
+
+
+def check_arch_flash(dev, gen) -> None:
+    """K1 and its backward in bf16 at the architectures' layer shapes, on
+    arch_flash_inputs, against the plain version in float32 with the
+    controls that show the check can see a wrong softcap or window (see
+    ARCH_FLASH_Q_SCALE); then each timed beside the bf16 plain version,
+    SDPA where it computes the same function (causal, no softcap; GQA by
+    ``enable_gqa``) and the bound: the larger of its bytes and its
+    operations on the visible pairs at the bf16 tensor-core rate."""
+    names = ("output", "dq", "dk", "dv")
+    for name, case in ARCH_FLASH_CASES.items():
+        b, s, t, nh, nkv, hd, mask, win, cap = case
+        q, k, v, do = arch_flash_inputs(gen, case, dev)
+        kw = dict(mask_kind=mask, window=win, attn_softcap=cap)
+        o, lse = flash_attention_lse_cuda(q, k, v, **kw)
+        got = (flash_attention_cuda(q, k, v, **kw), *flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw))
+        f32 = [x.float() for x in (q, k, v, do)]
+
+        def plain(**over):
+            kw32 = {**kw, **over}
+            return (ref.flash_attention_ref(*f32[:3], **kw32), *ref.flash_attention_bwd_ref(*f32, **kw32))
+
+        want = plain()
+        torch.cuda.synchronize()
+        for n, g in zip(names, got):
+            if g.dtype != torch.bfloat16:
+                raise RuntimeError(f"K1 bf16 {name} {case}: {n} is {g.dtype}")
+        shares = _shares(got, want, FLASH_BF16_TOL)
+        if not max(shares) <= 1.0:
+            raise RuntimeError(f"K1 bf16 {name} {case} vs the float32 plain version: "
+                               + ", ".join(f"{n} {100 * x:.1f}%" for n, x in zip(names, shares))
+                               + f" of {FLASH_BF16_TOL} x its max")
+        controls = {"softcap 0": dict(attn_softcap=0.0)} if cap else {}
+        if mask == "window":
+            controls.update({f"window {win - 1}": dict(window=win - 1),
+                             f"window {win + 1}": dict(window=win + 1)})
+        seen = []
+        for cname, over in controls.items():
+            missed = _shares(plain(**over), want, FLASH_BF16_TOL)
+            if not min(missed) > 1.0:
+                raise RuntimeError(f"K1 bf16 {name} {case}: the control with {cname} stays within "
+                                   f"the limit ({', '.join(f'{n} {100 * x:.1f}%' for n, x in zip(names, missed))}), "
+                                   "so the check cannot see that fault")
+            seen.append(f"{cname} misses it by {min(missed):.1f}x or more")
+        del want
+        log(f"[archs] K1 bf16 {name} {case} vs the float32 plain version (q x {ARCH_FLASH_Q_SCALE}, "
+            f"mask-edge keys): " + ", ".join(f"{n} {100 * x:.1f}%" for n, x in zip(names, shares))
+            + f" of {FLASH_BF16_TOL} x its max" + (f"; controls: {'; '.join(seen)}" if seen else ""))
+
+        pairs = b * nh * visible_pairs(s, mask, win)
+        ms = time_ms(lambda: flash_attention_cuda(q, k, v, **kw))
+        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw))
+        bwd = time_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw))
+        plain_bwd = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, do, **kw)) - plain_ms
+        lib = lib_bwd = None
+        if mask == "causal" and not cap:
+            qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+            qt, kt, vt = (x.requires_grad_(True) for x in (qt, kt, vt))
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+            lib = time_ms(lambda: sdpa().detach())
+            lib_bwd = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot)) - lib
+        # forward: q, k, v in, o out; backward: q, k, v, o, do, lse in, dq, dk, dv out
+        f_ms, f_by = bound(2 * (2 * q.numel() + 2 * k.numel()), 4 * hd * pairs, BF16_FLOPS)
+        b_ms, b_by = bound(2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
+                           BWD_FLOPS_PER_PAIR_HD * hd * pairs, BF16_FLOPS)
+        fmt = lambda x: "null" if x is None else f"{x:.4f}"  # noqa: E731
+        log(f"[archs] K1 bf16 {name} {case}: forward {ms:.4f} ms, plain {plain_ms:.4f}, SDPA "
+            f"{fmt(lib)}, bound {f_ms:.4f} ({f_by}, {100 * f_ms / ms:.1f}%); backward {bwd:.4f} ms, "
+            f"plain {plain_bwd:.4f}, SDPA {fmt(lib_bwd)}, bound {b_ms:.4f} ({b_by}, "
+            f"{100 * b_ms / bwd:.1f}%)")
+
+
+def phase_archs(dev) -> dict:
+    """qwen3-1.7b, gemma2-2b and granite-moe-1b-a400m in bf16 at full width,
+    each initialised once on the card: (a) served at full depth, its decode
+    held in float32, (b) cut to one layer group against device="cpu", and
+    its bf16 decode held to its prefill, (c) granite-moe's training
+    lifecycle; then (d) K1 at their layer shapes.  Returns the launches of
+    the counted runs, summed."""
+    t_phase = time.perf_counter()
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_archs_") as work:
+        for arch in ARCHS:
+            cfg = get_config(arch)
+            t0 = time.perf_counter()
+            params = build_model(cfg).init(
+                device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            n = sum(x.numel() for _, x in flatten_with_paths(params))
+            nbytes = sum(x.numel() * x.element_size() for _, x in flatten_with_paths(params))
+            if n != param_count(cfg):
+                raise RuntimeError(f"{arch}: {n} params, param_count says {param_count(cfg)}")
+            log(f"[archs] {arch}: {n} params ({active_param_count(cfg)} active a token; "
+                f"param_count agrees), {cfg.num_layers} layers of {cfg.block_pattern}, bf16 weights "
+                f"{nbytes} B, drawn on the card in {init_s:.2f} s")
+
+            b, s = ARCH_PREFILL.get(arch, ARCH_PREFILL_DEFAULT)
+            prompts = torch.from_numpy(
+                SyntheticLMDataset(cfg.vocab_size, s, b, seed=1).batch(0)["tokens"]).long().to(dev)
+            pb, ps = ARCH_PROMPT
+            decode_prompts = torch.from_numpy(
+                SyntheticLMDataset(cfg.vocab_size, ps, pb, seed=2).batch(0)["tokens"]).long().to(dev)
+            res = run_arch_serving(cfg, params, prompts, decode_prompts, work, max_new=ARCH_NEW,
+                                   device=dev)
+            add(check_arch_serving(res, cfg, prompts, decode_prompts))
+            _, wall_us, events = _profiled(
+                lambda: build_model(cfg).forward(params, {"tokens": prompts}), host_ops=False)
+            busy = sum(_device_us(e) for e in events)
+            busy = (f"device busy {busy / 1e3:.2f} ms of a {wall_us / 1e3:.2f} ms profiled prefill "
+                    f"({100 * busy / wall_us:.1f}%)" if events else
+                    "device time not measured (the profiler saw no device events)")
+            log(f"[archs] {arch} serving at full depth: prefill {b} x {s} {res.prefill_s * 1e3:.2f} "
+                f"ms (warm; K1 bf16 {cfg.num_layers} launches), {busy}; greedy decode {pb} x "
+                f"{ps} + {ARCH_NEW}: {pb * ARCH_NEW / res.decode_s:.1f} new tok/s "
+                f"({(ps + ARCH_NEW - 1) / res.decode_s:.1f} steps/s, no K1 launch); full checkpoint "
+                f"{res.nbytes} B saved in {res.save_s:.3f} s, restored in {res.restore_s:.3f} s, "
+                f"every leaf and the prefill's logits bit-identical")
+            add(check_arch_decode(cfg, params, res, dev))
+            del res
+            add(check_arch_card_vs_cpu(cfg, params, dev))
+            add(check_cut_decode(cfg, params, dev))
+            del params
+            if arch == MOE_ARCH:
+                add(run_moe_lifecycle(cfg, dev, work))
+            torch.cuda.empty_cache()
+    check_arch_flash(dev, torch.Generator().manual_seed(3))
+    log(f"[archs] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main() -> int:
     kind = phase_device()
     dev = resolve("cuda")
@@ -1748,6 +2369,10 @@ def main() -> int:
     for name, n in examples.items():
         launches[name] += n
     log(f"[examples] launches of the examples {examples}; all counted paths {launches}")
+    archs = phase_archs(dev)
+    for name, n in archs.items():
+        launches[name] += n
+    log(f"[archs] launches of the architectures' runs {archs}; all counted paths {launches}")
 
     rows = []
     for name, st in stats.items():

@@ -87,7 +87,9 @@ class CheckpointManager:
         """Serialize and persist ``state`` (a tree of tensors or arrays).
         Quantization runs on the device the state lies on, on the caller's
         thread; with ``async_save`` only compression and IO run on the
-        writer thread.  delta-int8 uses the previous save as base."""
+        writer thread, which reads a state on the CPU in place: leave it
+        unmodified until ``wait()``.  delta-int8 uses the previous save as
+        base."""
         mode = mode or self.mode
         t0 = time.time()
         tensors = [x for _, x in flatten_with_paths(state) if isinstance(x, torch.Tensor)]
@@ -104,7 +106,7 @@ class CheckpointManager:
             os.makedirs(d, exist_ok=True)
             path = os.path.join(d, "checkpoint.bin")
             with open(path, "wb") as f:
-                f.write(ser.to_bytes(payload))
+                ser.write_to(f, payload)
             return CheckpointInfo(self.job, step, path, os.path.getsize(path), mode, time.time() - t0)
 
         self.wait()

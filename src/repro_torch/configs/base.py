@@ -3,6 +3,8 @@
 Every architecture is expressed as a ``ModelConfig``; the model factory
 (``repro_torch.models.model``) consumes only this dataclass.  The fields are
 the JAX package's, so a config means the same model in both packages.
+``param_count`` / ``active_param_count`` are copies of the reference's
+analytic counts.
 """
 from __future__ import annotations
 
@@ -115,3 +117,103 @@ class ModelConfig:
             mrope_sections=(2, 3, 3) if self.mrope_sections else (),
             dtype="float32",
         )
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Analytic parameter count (exact for this implementation; used by the
+    feasibility model before a model is ever instantiated)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nh, nkv = cfg.num_heads, cfg.num_kv_heads
+    total = 0
+    # embeddings
+    total += cfg.vocab_size * d
+    if not cfg.tie_embeddings:
+        total += cfg.vocab_size * d
+    if cfg.learned_pos:
+        total += 32768 * d
+
+    def attn_params() -> int:
+        p = d * nh * hd + 2 * d * nkv * hd + nh * hd * d
+        if cfg.qkv_bias:
+            p += nh * hd + 2 * nkv * hd
+        if cfg.qk_norm:
+            p += 2 * hd
+        return p
+
+    def dense_mlp() -> int:
+        return 3 * d * cfg.d_ff  # SwiGLU (gate, up, down)
+
+    def moe_mlp() -> int:
+        return cfg.num_experts * 3 * d * cfg.expert_d_ff + d * cfg.num_experts
+
+    def mamba_params() -> int:
+        d_in = cfg.mamba_expand * d
+        dt_rank = max(1, d // 16)
+        p = d * 2 * d_in  # in_proj
+        p += d_in * cfg.mamba_d_conv + d_in  # conv1d + bias
+        p += d_in * (dt_rank + 2 * cfg.mamba_d_state)  # x_proj
+        p += dt_rank * d_in + d_in  # dt_proj
+        p += d_in * cfg.mamba_d_state + d_in  # A_log, D
+        p += d_in * d  # out_proj
+        return p
+
+    def mlstm_params() -> int:
+        d_in = 2 * d
+        dh = d_in // max(cfg.num_heads, 1)
+        p = d * 2 * d_in  # up proj (x | z-gate)
+        p += 3 * cfg.num_heads * dh * dh  # block-diagonal q,k,v
+        p += 2 * d_in * cfg.num_heads + 2 * cfg.num_heads  # i/f gates
+        p += d_in  # skip
+        p += d_in * d  # down proj
+        return p
+
+    def slstm_params() -> int:
+        p = 4 * d * d + 4 * d  # i,f,z,o projections
+        p += 2 * d * (d * 4 // 3)  # gated FFN up/gate (pf 4/3)
+        p += (d * 4 // 3) * d
+        return p
+
+    unit_cost = 0
+    for i, kind in enumerate(cfg.block_pattern):
+        if kind.startswith("attn"):
+            unit_cost += attn_params() + 2 * d  # + norms
+            if cfg.moe and (not cfg.moe_pattern or i in cfg.moe_pattern):
+                unit_cost += moe_mlp()
+            else:
+                unit_cost += dense_mlp()
+        elif kind == "mamba":
+            unit_cost += mamba_params() + 2 * d
+            if cfg.moe and (not cfg.moe_pattern or i in cfg.moe_pattern):
+                unit_cost += moe_mlp()
+            else:
+                unit_cost += dense_mlp()
+        elif kind == "mlstm":
+            unit_cost += mlstm_params() + 2 * d
+        elif kind == "slstm":
+            unit_cost += slstm_params() + 2 * d
+        else:
+            raise ValueError(kind)
+    total += cfg.num_groups * unit_cost
+    # encoder (whisper): attn + cross-attn-free encoder blocks, decoder adds
+    # cross attention per layer (counted roughly; exact count comes from the
+    # instantiated pytree which the checkpoint manager measures).
+    if cfg.is_encdec:
+        enc = cfg.encoder_layers * (attn_params() + dense_mlp() + 2 * d)
+        xattn = cfg.num_layers * (attn_params() + d)
+        total += enc + xattn
+    total += d  # final norm
+    return int(total)
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Active parameters per token (MoE: top_k of num_experts)."""
+    if not cfg.moe:
+        return param_count(cfg)
+    full = param_count(cfg)
+    d = cfg.d_model
+    per_expert = 3 * d * cfg.expert_d_ff
+    n_moe_layers = (
+        cfg.num_groups * (len(cfg.moe_pattern) if cfg.moe_pattern else len(cfg.block_pattern))
+    )
+    inactive = n_moe_layers * (cfg.num_experts - cfg.top_k) * per_expert
+    return int(full - inactive)

@@ -147,7 +147,7 @@ def apply_attention_decode(
     p: dict,
     x: torch.Tensor,  # (b, 1, d) current-token activations
     cache: dict,  # {'k','v'}: (b, T, nkv, hd)
-    index: int,  # write position (same for the batch)
+    index: int,  # absolute position of the token (same for the batch)
     *,
     positions: torch.Tensor,  # (b, 1)
     rope_type: str,
@@ -160,17 +160,31 @@ def apply_attention_decode(
 ):
     """One-token attention step.  Unlike the JAX package, which returns a
     new cache, the port writes the new key and value into ``cache`` in
-    place (no copy of the whole cache per token) and returns it."""
+    place (no copy of the whole cache per token) and returns it.
+
+    A sliding-window layer's cache holds T <= window slots (the reference's
+    ``min(max_len, sliding_window)``) as a ring buffer: position ``index``
+    goes to slot ``index % T``, and each slot's absolute position (the
+    newest one written there) feeds the window mask.  So decode equals the
+    full-sequence forward past the window too.  (The reference writes with
+    ``dynamic_update_slice``, which clamps every position past T - 1 into
+    the last slot, and its mask then drops the wrong keys.)  Any other
+    layer's cache holds every position: ``index`` must be below T."""
     q, k, v = _project_qkv(p, x, x, qk_norm=qk_norm)
     q = rope_lib.apply_positional(q, positions, rope_type, rope_theta, mrope_sections)
     k = rope_lib.apply_positional(k, positions, rope_type, rope_theta, mrope_sections)
     ck, cv = cache["k"], cache["v"]
-    ck[:, index] = k[:, 0].to(ck.dtype)
-    cv[:, index] = v[:, 0].to(cv.dtype)
     b, T = x.shape[0], ck.shape[1]
-    kpos = torch.arange(T, device=x.device).expand(b, T)
-    valid = kpos <= index
-    # The query's mask position is its cache slot, not its rope id.
+    if mask_kind != "window" and index >= T:
+        raise IndexError(f"decode position {index} beyond the cache's {T} slots")
+    slot = index % T
+    ck[:, slot] = k[:, 0].to(ck.dtype)
+    cv[:, slot] = v[:, 0].to(cv.dtype)
+    # the absolute position each slot holds; negative: not written yet
+    kpos = index - torch.remainder(index - torch.arange(T, device=x.device), T)
+    kpos = kpos.expand(b, T)
+    valid = kpos >= 0
+    # The query's mask position is its absolute position, not its rope id.
     qpos = torch.full((b, 1), index, device=x.device)
     out = attend_ref(
         q, ck, cv,

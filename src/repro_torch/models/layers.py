@@ -1,19 +1,31 @@
 """Shared primitive layers (plain functions; params are nested dicts).
 
-Port of ``repro/models/layers.py``.  Init draws from an explicit CPU
-``torch.Generator`` and then moves to ``device``, so one seed gives the same
-weights on every device.
+Port of ``repro/models/layers.py``.  Init draws from an explicit
+``torch.Generator`` on the generator's device and then moves to ``device``:
+a CPU generator (the default) gives the same weights on every device, a
+generator on the card draws a full-width model there in a fraction of the
+time.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
+_TRUNC = 2.0  # the JAX package's truncation, in standard deviations
+_CDF_LO = 0.5 * (1.0 + math.erf(-_TRUNC / math.sqrt(2.0)))
+_CDF_HI = 0.5 * (1.0 + math.erf(_TRUNC / math.sqrt(2.0)))
+
 
 def truncated_normal(gen: torch.Generator, shape, std: float, dtype, device) -> torch.Tensor:
-    """N(0, 1) truncated to [-2, 2], times ``std`` (the JAX package's init)."""
-    x = torch.empty(shape, dtype=torch.float32)
-    torch.nn.init.trunc_normal_(x, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=gen)
+    """N(0, 1) truncated to [-2, 2], times ``std`` (the JAX package's init),
+    drawn on ``gen``'s device by the inverse CDF: one uniform draw per value
+    (what ``torch.nn.init.trunc_normal_`` did up to torch 2.11; later
+    versions resample, several times slower on the CPU)."""
+    x = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    x.uniform_(2.0 * _CDF_LO - 1.0, 2.0 * _CDF_HI - 1.0, generator=gen)
+    x.erfinv_().mul_(math.sqrt(2.0)).clamp_(-_TRUNC, _TRUNC)
     return (x * std).to(device=device, dtype=dtype)
 
 

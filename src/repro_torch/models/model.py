@@ -24,8 +24,10 @@ class Model(torch.nn.Module):
 
     def init(self, seed: int = 0, *, device: DeviceLike = None,
              generator: Optional[torch.Generator] = None) -> dict:
-        """Random params from ``seed`` (or an explicit CPU ``generator``),
-        placed on ``device`` (default: the card)."""
+        """Random params from ``seed`` (or an explicit ``generator``, which
+        draws them on its own device), placed on ``device`` (default: the
+        card).  A CPU generator gives the same params on every device; one
+        on the card draws a full-width model there in well under a second."""
         gen = generator if generator is not None else torch.Generator().manual_seed(seed)
         return tfm.init_lm(gen, self.cfg, resolve(device))
 

@@ -1,5 +1,7 @@
-"""The port's package boundary: it imports neither JAX nor the JAX package,
-and without a card its default device raises instead of falling back."""
+"""The port's package boundary: it imports neither JAX nor the JAX package
+(nor ``ml_dtypes``, JAX's numpy bfloat16, which the machine with the card
+lacks), and without a card its default device raises instead of falling
+back."""
 import os
 import subprocess
 import sys
@@ -23,7 +25,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 print(len(names), bad)
 assert not bad, bad
 """

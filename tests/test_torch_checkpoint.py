@@ -4,6 +4,7 @@ restore across the packages, and equal migration reports."""
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -15,8 +16,14 @@ from repro.core.migration import migrate_job as jmigrate_job
 from repro.models.model import build_model as jbuild_model
 from repro_torch.checkpoint import serializer as ser
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.convert import flatten_with_paths, params_from_numpy, params_to_numpy
+from repro_torch.configs import get_config
+from repro_torch.convert import (bf16_words_to_f32, flatten_with_paths, host_words,
+                                 params_from_numpy, params_to_numpy)
 from repro_torch.core.migration import migrate_job
+from repro_torch.data.pipeline import SyntheticLMDataset
+from repro_torch.models.model import build_model
+from repro_torch.optim import AdamWConfig
+from repro_torch.train import Trainer, TrainerConfig, TrainStepConfig
 
 MODES = ("full", "int8", "delta-int8")
 
@@ -130,3 +137,123 @@ def test_migration_report_matches_reference(tmp_path, trees):
     back, _ = dst.restore(params_from_numpy(later, "cpu"), device="cpu")
     _assert_trees_equal(back, later)
     assert params_to_numpy(back)["step"] == 7
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 leaves: the assigned architectures' trees (bf16 params, a float32
+# MoE router, float32 optimizer state)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def bf16_trees():
+    """Two (base, later) pairs from the JAX init: reduced micro-lm cast to
+    bf16, and reduced granite-moe in bf16 with its float32 router (a mixed
+    tree), each with an int32 step leaf."""
+    rng = np.random.default_rng(1)
+    out = {}
+    for name, arch in (("bf16", "micro-lm"), ("mixed", "granite-moe-1b-a400m")):
+        cfg = dataclasses.replace(jget_config(arch).reduced(), dtype="bfloat16")
+        base = jax.tree.map(np.asarray, jbuild_model(cfg).init(jax.random.PRNGKey(0)))
+        later = jax.tree.map(
+            lambda a: (a.astype(np.float32) + rng.standard_normal(a.shape).astype(np.float32)
+                       * 1e-3).astype(a.dtype), base)
+        base["step"], later["step"] = np.asarray(6, np.int32), np.asarray(7, np.int32)
+        out[name] = (base, later)
+    return out
+
+
+def _words(x) -> np.ndarray:
+    """A leaf's raw bits (bf16 as int16 words), tensor or numpy."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.view(torch.int16) if x.dtype == torch.bfloat16 else x).numpy()
+    return x.view(np.int16) if x.dtype.name == "bfloat16" else np.asarray(x)
+
+
+def _assert_bits_equal(a, b):
+    la, lb = flatten_with_paths(a), flatten_with_paths(b)
+    assert [p for p, _ in la] == [p for p, _ in lb]
+    for (p, x), (_, y) in zip(la, lb):
+        assert str(x.dtype).removeprefix("torch.") == str(y.dtype).removeprefix("torch."), p
+        np.testing.assert_array_equal(_words(x), _words(y), err_msg="/".join(p))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("kind", ["bf16", "mixed"])
+def test_bf16_to_bytes_identical_between_packages(bf16_trees, kind, mode):
+    base, later = bf16_trees[kind]
+    b = base if mode == "delta-int8" else None
+    want = jser.to_bytes(jser.serialize_tree(later, mode=mode, base=b))
+    assert ser.to_bytes(ser.serialize_tree(later, mode=mode, base=b, device="cpu")) == want
+    torch_tree = params_from_numpy(later, "cpu")
+    torch_base = params_from_numpy(base, "cpu") if b is not None else None
+    assert ser.to_bytes(ser.serialize_tree(torch_tree, mode=mode, base=torch_base,
+                                           device="cpu")) == want
+    assert ser.tree_bytes(torch_tree) == jser.tree_bytes(later)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("kind", ["bf16", "mixed"])
+def test_bf16_restore_bit_equal_to_reference(bf16_trees, kind, mode):
+    """The same payload restored by both packages: int8 leaves rounded to
+    bf16 as astype does (to nearest even), raw leaves as stored."""
+    base, later = bf16_trees[kind]
+    b = base if mode == "delta-int8" else None
+    payload = jser.serialize_tree(later, mode=mode, base=b)
+    want = jser.deserialize_tree(payload, later, base=b)
+    got = ser.deserialize_tree(ser.from_bytes(jser.to_bytes(payload)), params_from_numpy(later, "cpu"),
+                               base=params_from_numpy(b, "cpu") if b is not None else None,
+                               device="cpu")
+    _assert_bits_equal(got, want)
+    if mode == "full":
+        _assert_bits_equal(got, later)
+
+
+def test_convert_roundtrips_bf16_bit_exactly():
+    """Every one of the 65,536 bf16 bit patterns (NaNs, infinities, -0 and
+    subnormals included) crosses both ways unchanged."""
+    every = np.arange(1 << 16, dtype=np.uint16).view(jnp.bfloat16).reshape(256, 256)
+    tree = {"a": every, "b": {"f32": np.float32([1.5, -2.25]), "step": np.int32(3)}}
+    t = params_from_numpy(tree, "cpu")
+    assert t["a"].dtype == torch.bfloat16 and t["b"]["f32"].dtype == torch.float32
+    np.testing.assert_array_equal(t["a"].view(torch.int16).numpy(), every.view(np.int16))
+    back = params_to_numpy(t)
+    _assert_bits_equal(back, tree)
+    _assert_bits_equal(params_from_numpy(back, "cpu"), t)
+    words, name = host_words(t["a"])
+    assert name == "bfloat16" and words.dtype == np.uint16
+    np.testing.assert_array_equal(words, every.view(np.uint16))
+    np.testing.assert_array_equal(bf16_words_to_f32(words[:8]), every[:8].astype(np.float32))
+
+
+def test_bf16_trainer_saves_migrates_and_restores(tmp_path):
+    """A bf16 Trainer (reduced granite-moe: bf16 params, float32 router,
+    float32 master / m / v) trains to step 2, saves, migrates and restores
+    at site B bit for bit, and finishes equal to an unmigrated run."""
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m").reduced(), dtype="bfloat16")
+
+    def trainer(root, steps):
+        t = Trainer(build_model(cfg), SyntheticLMDataset(cfg.vocab_size, 16, 2),
+                    CheckpointManager(str(root), job=cfg.name),
+                    TrainerConfig(total_steps=4, save_every=2, log_every=1,
+                                  step_cfg=TrainStepConfig(opt=AdamWConfig(lr=3e-3), total_steps=4,
+                                                           warmup_steps=1)), device="cpu")
+        t.preempt_signal = lambda step: step >= steps
+        return t
+
+    ref = trainer(tmp_path / "ref", 4)
+    ref.run()
+    a = trainer(tmp_path / "A", 2)
+    assert a.run()["status"] == "preempted"
+    dst, report = migrate_job(a.ckpt, str(tmp_path / "B"), bandwidth_bps=1e9, window_s=3600.0)
+    # S_j: bf16 leaves count 2 bytes each, the router and optimizer state 4
+    assert report.nbytes == len(dst.export_bytes()) > ser.tree_bytes(a.state_tree())
+    b = trainer(tmp_path / "B", 4)
+    b.ckpt = dst
+    assert b.restore() == 2
+    _assert_bits_equal(b.state_tree(), a.state_tree())
+    assert b.params["groups"]["b0"]["moe"]["router"].dtype == torch.float32
+    assert b.params["embed"]["table"].dtype == torch.bfloat16
+    b.run()
+    _assert_bits_equal(b.params, ref.params)

@@ -49,7 +49,7 @@ def test_config_copy_matches_reference():
 
 def test_registry_raises_for_unported_arch():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("gemma2-2b")
+        get_config("jamba-v0.1-52b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

@@ -116,6 +116,43 @@ def test_apply_updates_bf16_params_keep_f32_master():
         np.testing.assert_allclose(got, want, atol=np.abs(want).max() * 2 ** -8, rtol=0)
 
 
+def test_adamw_on_a_mixed_tree_matches_reference():
+    """The MoE models' tree: bf16 params with a float32 router (the leaves,
+    shapes and types of reduced granite-moe in bf16, random values crossed
+    bit for bit).  The optimizer state is float32 throughout and the step
+    keeps each param's type."""
+    import dataclasses
+
+    from repro.configs import get_config as jget_config
+    from repro.models.model import build_model as jbuild_model
+
+    cfg = dataclasses.replace(jget_config("granite-moe-1b-a400m").reduced(), dtype="bfloat16")
+    rng = np.random.default_rng(4)
+    jp = jax.tree.map(lambda x: (rng.standard_normal(x.shape) * 0.05).astype(x.dtype),
+                      jax.eval_shape(jbuild_model(cfg).init, jax.random.PRNGKey(0)))
+    tp = params_from_numpy(jp, "cpu")
+    jp = jax.tree.map(jnp.asarray, jp)
+    js, ts = jadamw.init_opt_state(jp), init_opt_state(tp)
+    for name in ("master", "m", "v"):
+        assert all(x.dtype == torch.float32 for _, x in flatten_with_paths(ts[name]))
+    for got, want in zip(_leaves_t(ts["master"]), _leaves_np(js["master"])):
+        np.testing.assert_array_equal(got, want)
+    jupdate = jax.jit(jadamw.apply_updates, static_argnums=3)
+    for _ in range(2):
+        g = jax.tree.map(lambda x: (rng.standard_normal(x.shape) * 1e-2).astype(x.dtype),
+                         jax.tree.map(np.asarray, jp))
+        jp, js, _ = jupdate(jp, jax.tree.map(jnp.asarray, g), js, jadamw.AdamWConfig(), 1.0)
+        tp, ts, _ = apply_updates(tp, params_from_numpy(g, "cpu"), ts, AdamWConfig(), 1.0)
+    for (path, x), y in zip(flatten_with_paths(tp), jax.tree.leaves(jp)):
+        assert str(x.dtype).removeprefix("torch.") == str(y.dtype), path
+    assert tp["groups"]["b0"]["moe"]["router"].dtype == torch.float32
+    for got, want in zip(_leaves_t(ts["master"]), _leaves_np(js["master"])):
+        np.testing.assert_allclose(got, want, atol=PARAM_TOL, rtol=0)
+    for got, want in zip(_leaves_t(tp), _leaves_np(jp)):
+        np.testing.assert_allclose(got, want, atol=max(np.abs(want).max() * 2 ** -8, PARAM_TOL),
+                                   rtol=0)
+
+
 def test_global_norm_matches_reference():
     g = _tree(np.random.default_rng(3), 3.0)
     want = float(jadamw.global_norm(jax.tree.map(jnp.asarray, g)))
