@@ -81,7 +81,26 @@ Phases, each of which raises on failure:
                 the three architectures' layer shapes, on inputs where
                 softcap and window decide the answer, held to the float32
                 plain version with controls and timed beside SDPA; every
-                run counted and held to the launches derived for it.
+                run counted and held to the launches derived for it;
+ 12. archs2 -- qwen2.5-32b, qwen1.5-32b, phi3.5-moe-42b-a6.6b and
+                qwen2-vl-7b in bf16 at full width, each drawn once on the
+                card from seed 0 (param_count, the weights' bytes and the
+                card's free and peak memory printed): served at full depth
+                (phi3.5-moe at 24 of its 32 layers: 83.7 GB do not fit),
+                prefill 2 x 512 and greedy decode 2 x 32 + 16 (qwen2-vl on
+                embeddings with M-RoPE positions of a patch grid then text),
+                S_j at full depth and the gate's verdict on it; then the
+                first layer groups kept and the full model freed: a float32
+                copy (4 layers; qwen2-vl's whole model) decodes the served
+                inputs, held to its prefill; one layer group against
+                device="cpu" (forward and one train step, every gradient
+                leaf; phi3.5's CPU side routed as the card, its step also in
+                float32), its bf16 decode against its prefill, and a
+                full-mode checkpoint, gate, migrate_job and restore at that
+                depth; each model freed and the card's memory checked; then
+                K1 and its backward at the four layer shapes (GQA groups 5,
+                1, 4 and 7) with controls for a wrong head mapping or causal
+                diagonal; every run counted as derived.
 Then one JSON line of per-kernel numbers, and last the ok line.  Nothing
 runs on the CPU in place of the card: without a card the script exits 1.
 """
@@ -344,13 +363,20 @@ ARCH_PAST_WINDOW = 64
 MOE_ARCH, MOE_LIFE_LAYERS = "granite-moe-1b-a400m", 2
 MOE_LIFE_STEPS, MOE_LIFE_PREEMPT, MOE_LIFE_SAVE_EVERY = 12, 6, 3
 # K1 in bf16 at the architectures' own layer shapes (b, s, t, nh, nkv, hd,
-# mask, window, softcap): qwen3's prefill, gemma2's local and global layers
-# over its 4,608-token prefill (softcap 50), granite's prefill.
+# mask, window, softcap), each named by its architecture first: qwen3's
+# prefill, gemma2's local and global layers over its 4,608-token prefill
+# (softcap 50), granite's prefill ([archs]); then the prefills of
+# [archs2]: GQA groups of 5 (qwen2.5), 1 with 40 kv heads (qwen1.5's MHA),
+# 4 (phi3.5-moe) and 7 (qwen2-vl).
 ARCH_FLASH_CASES = {
     "qwen3-1.7b": (2, 512, 512, 16, 8, 128, "causal", 0, 0.0),
     "gemma2-2b local": (1, 4608, 4608, 8, 4, 256, "window", 4096, 50.0),
     "gemma2-2b global": (1, 4608, 4608, 8, 4, 256, "causal", 0, 50.0),
     "granite-moe-1b-a400m": (2, 512, 512, 16, 8, 64, "causal", 0, 0.0),
+    "qwen2.5-32b": (2, 512, 512, 40, 8, 128, "causal", 0, 0.0),
+    "qwen1.5-32b": (2, 512, 512, 40, 40, 128, "causal", 0, 0.0),
+    "phi3.5-moe-42b-a6.6b": (2, 512, 512, 32, 8, 128, "causal", 0, 0.0),
+    "qwen2-vl-7b": (2, 512, 512, 28, 4, 128, "causal", 0, 0.0),
 }
 # These shapes are held on inputs where the softcap and the mask's edge
 # decide the answer.  Q is scaled by ARCH_FLASH_Q_SCALE, so the scores
@@ -367,9 +393,38 @@ ARCH_FLASH_CASES = {
 # GRAD_BF16_TOL of its largest (the kernel keeps S and dP in float32 and
 # rounds P, dS and what it writes to bf16, 2^-9 relative each).  Controls,
 # on the same inputs and against the same limit: the float32 plain version
-# with softcap 0, and with the window one key shorter and one key longer,
+# with softcap 0, with the window one key shorter and one key longer, with
+# query head h reading kv head h % nkv in place of h // group (where the
+# two differ), and with the causal diagonal moved by one key either way,
 # must each miss it in the output and in every gradient.
 ARCH_FLASH_Q_SCALE, ARCH_FLASH_EDGE = 8.0, 6.0
+# The [archs2] phase: the rest of the attention family, in bf16 at full
+# width, their random weights drawn on the card from seed 0.  Served at
+# full depth, but phi3.5-moe's 83.7 GB of bf16 weights do not fit the
+# card's 80 GB: its first 24 of 32 layers (62.9 GB).
+ARCHS2 = ("qwen2.5-32b", "qwen1.5-32b", "phi3.5-moe-42b-a6.6b", "qwen2-vl-7b")
+ARCH2_LAYERS = {"phi3.5-moe-42b-a6.6b": 24}
+# The float32 decode check runs on a float32 copy of the first
+# ARCH2_F32_GROUPS layer groups (a float32 copy of a 32 B model does not
+# fit); qwen2-vl's whole float32 copy (30.5 GB) fits beside its bf16
+# weights, so it is held at full depth.
+ARCH2_F32_GROUPS = 4
+ARCH2_F32_FULL_DEPTH = ("qwen2-vl-7b",)
+# qwen2-vl's inputs: embeddings drawn as the embedding table's rows are
+# (std 0.02), and M-RoPE positions of a patch grid followed by text: the
+# 2 x 512 prefill a 16 x 16 grid and 256 text positions, the 2 x 32 decode
+# prompt and the one-group checks a 4 x 4 grid and the rest text.
+ARCH2_EMBED_STD = 0.02
+ARCH2_GRID, ARCH2_SMALL_GRID = (16, 16), (4, 4)
+# Card against device="cpu" at one layer group: 2 x 32 tokens, not
+# [archs]' 2 x 64.  At these widths the CPU side at 2 x 64 took 10-28 s a
+# bf16 step and 16 s for phi3.5-moe's float32 step on the H100 machine's
+# host (the dense dispatch runs all 16 experts on every token), and the
+# whole script 1,040 s of its 1,200.
+ARCH2_CARD_CPU_SEQ = 32
+# After a model is freed the card must hold no more than this beyond what
+# it held before the model was drawn.
+ARCH2_LEAK_BYTES = 1 << 30
 # K4 at the upper fleet shape: 131,072 jobs x 100 sites (104 padded), one cell
 UPPER_JOBS, UPPER_SITES = 131072, 100
 # A cell of more sites than K4 stages at a time (128): 1,024 jobs x 300 sites
@@ -1356,7 +1411,15 @@ def check_card_vs_cpu(cfg, params, dev, *, seq=TRAIN_SEQ, steps=2, tag="[train]"
     data = SyntheticLMDataset(cfg.vocab_size, seq, CARD_CPU_BATCH)
     batches = [data.batch(i) for i in range(steps)]
     t0 = time.perf_counter()
-    g_cpu, m_cpu, _, _ = run_train_steps(cfg, params, batches, device="cpu")
+    if steps == 1:
+        # the step's loss, gradients and grad norm without its AdamW update,
+        # which the CPU side of one step does not need
+        (loss, _), g_cpu = value_and_grad(
+            build_model(cfg), tree_map(lambda x: x.detach().cpu(), params),
+            {k: torch.from_numpy(v) for k, v in batches[0].items()}, "full")
+        m_cpu = [{"loss": float(loss), "grad_norm": float(global_norm(g_cpu))}]
+    else:
+        g_cpu, m_cpu, _, _ = run_train_steps(cfg, params, batches, device="cpu")
     cpu_s = time.perf_counter() - t0
     g_card, m_card, counts, prof = run_train_steps(cfg, params, batches, device=dev,
                                                    profile=profile)
@@ -1441,18 +1504,30 @@ def check_bf16_step(cfg, params, dev, batch, what: str, *, moe_routes=None) -> d
         want = cpu_of[path].float()
         if g.dtype != params_of[path].dtype or not bool(torch.isfinite(g).all()):
             raise RuntimeError(f"{what} gradient {'/'.join(path)}: {g.dtype} or not finite")
-        share = float((g.float().cpu() - want).abs().max()) / (CARD_CPU_BF16_TOL * float(want.abs().max()))
+        share = leaf_share(g, want, CARD_CPU_BF16_TOL)
         if not share <= 1.0:
             raise RuntimeError(f"{what} first-step gradient {'/'.join(path)} on the card vs the CPU: "
                                f"{100 * share:.1f}% of {CARD_CPU_BF16_TOL} x its max")
         if share > worst:
             worst, worst_path = share, "/".join(path)
-    b, s = batch["tokens"].shape
+    b, s = batch["labels"].shape
     routed = "; the CPU side routed as the card" if force is not None else ""
     log(f"{what}, card vs device='cpu', one step on {b} x {s} tokens (CPU {cpu_s:.1f} s{routed}): "
         f"{'; '.join(parts)}; first-step gradients within {CARD_CPU_BF16_TOL} x each leaf's max, "
         f"at most {100 * worst:.1f}% of it ({worst_path}); launches {counts}, as derived")
     return counts
+
+
+def leaf_share(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """``got``'s max abs difference from ``want`` as a share of ``tol`` x
+    the largest |element| of ``want``; a leaf the loss does not reach
+    (``want`` all 0: an embedding table under embeddings inputs) must be
+    all 0 too, and then has share 0."""
+    err = float((got.float().cpu() - want.float()).abs().max())
+    top = float(want.abs().max())
+    if top == 0.0:
+        return 0.0 if err == 0.0 else float("inf")
+    return err / (tol * top)
 
 
 def check_train_lifecycle(res: TrainResult, tag: str = "[train]") -> dict:
@@ -1785,6 +1860,74 @@ def phase_examples(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def mrope_positions(b: int, grid_h: int, grid_w: int, n_text: int) -> torch.Tensor:
+    """(b, grid_h * grid_w + n_text, 3) M-RoPE ids (t, h, w) of a patch
+    grid followed by text, as Qwen2-VL numbers them (arXiv:2409.12191
+    section 2.1): the grid's t fixed at 0, h its row, w its column; the
+    text's three streams equal, counting on from the grid's largest id
+    plus one."""
+    rows = torch.arange(grid_h).repeat_interleave(grid_w)
+    cols = torch.arange(grid_w).repeat(grid_h)
+    grid = torch.stack([torch.zeros_like(rows), rows, cols], dim=-1)
+    text = (max(grid_h, grid_w) + torch.arange(n_text))[:, None].expand(n_text, 3)
+    return torch.cat([grid, text]).expand(b, -1, -1).contiguous()
+
+
+def arch_batch(cfg, b: int, s: int, *, seed: int, grid=None) -> dict:
+    """A numpy batch of ``b`` x ``s`` inputs for ``cfg``: the synthetic LM
+    stream's tokens and labels, or for an embeddings-input model seeded
+    embeddings (std ARCH2_EMBED_STD), M-RoPE positions of a ``grid``
+    patch grid then text (mrope_positions) and the stream's labels."""
+    batch = SyntheticLMDataset(cfg.vocab_size, s, b, seed=seed).batch(0)
+    if cfg.input_mode != "embeddings":
+        return batch
+    gh, gw = grid or ARCH2_SMALL_GRID
+    rng = np.random.default_rng(seed)
+    embeds = (rng.standard_normal((b, s, cfg.d_model)) * ARCH2_EMBED_STD).astype(np.float32)
+    return {"embeds": embeds, "positions": mrope_positions(b, gh, gw, s - gh * gw).numpy(),
+            "labels": batch["labels"]}
+
+
+def torch_inputs(batch: dict, device="cpu") -> dict:
+    """A numpy batch's model inputs (its labels left out) as tensors on
+    ``device``, integer ids as int64."""
+    out = {}
+    for k, v in batch.items():
+        if k != "labels":
+            x = torch.from_numpy(v)
+            out[k] = (x.long() if not x.is_floating_point() else x).to(device)
+    return out
+
+
+def inputs_word(cfg) -> str:
+    return "embeddings" if cfg.input_mode == "embeddings" else "tokens"
+
+
+@torch.inference_mode()
+def decode_embeds(model, params, embeds, positions, max_new: int, tokens=None):
+    """Step-by-step decode through Model.decode_step of a prompt given as
+    embeddings (b, P, d), each step with its (b, 1, 3) M-RoPE positions,
+    then ``max_new - 1`` tokens through the embedding table: the greedy
+    (argmax) ones, or with ``tokens`` (b, max_new - 1) those.  Returns (the
+    ``max_new`` greedy tokens (b, max_new), every step's logits (b, P +
+    max_new - 1, vocab))."""
+    b, P = embeds.shape[:2]
+    n = P + max_new - 1
+    cache = model.init_cache(b, n, device=embeds.device)
+    steps, new = [], []
+    for i in range(n):
+        if i < P:
+            step = {"embeds": embeds[:, i:i + 1]}
+        else:
+            step = {"token": new[-1] if tokens is None else tokens[:, i - P]}
+        logits, cache = model.decode_step(
+            params, cache, {**step, "index": i, "positions": positions[:, i:i + 1]})
+        steps.append(logits)
+        if i >= P - 1:
+            new.append(torch.argmax(logits, dim=-1))
+    return torch.stack(new, dim=1), torch.stack(steps, dim=1)
+
+
 def cut_depth(cfg, params, groups: int):
     """The first ``groups`` layer groups of a model: (its config, its params,
     whose group leaves are views of the full model's)."""
@@ -1915,15 +2058,17 @@ def check_arch_serving(res: ArchServeResult, cfg, prompts, decode_prompts) -> di
 def expert_choice(record: list, force=None):
     """Inside, each MoE top-k expert selection (moe.topk_stable, as
     moe.router_probs calls it) appends its (b, s, k) experts to ``record``;
-    with ``force``, it picks those experts instead, each with the layer's
-    own probability as its gate (renormalised by router_probs as ever)."""
+    with ``force``, it picks those experts instead (a list: the i-th
+    selection picks its i-th entry), each with the layer's own probability
+    as its gate (renormalised by router_probs as ever)."""
     real = moe_lib.topk_stable
+    calls = iter(force) if isinstance(force, list) else None
 
     def choose(x, k):
         if force is None:
             vals, idx = real(x, k)
         else:
-            idx = force.to(x.device)
+            idx = (next(calls) if calls is not None else force).to(x.device)
             if idx.shape != (*x.shape[:-1], k):
                 raise RuntimeError(f"forced experts {tuple(idx.shape)} for a top-{k} of {tuple(x.shape)}")
             vals = torch.gather(x, -1, idx)
@@ -1944,39 +2089,45 @@ def routing_flips(card: list, cpu: list) -> int:
     return int((a != b).any(-1).sum())
 
 
-def check_arch_card_vs_cpu(cfg, params, dev) -> dict:
-    """The model cut to one layer group at full width, on 2 x 64 tokens, on
-    the card against device="cpu": the forward's logits within
-    CARD_CPU_BF16_TOL of the largest |logit| (how the step's gradients are
-    held), beside both sides' distance from the float32 forward of the same
-    weights on the CPU (not a gate); then one train step (check_bf16_step).
-    Returns the launches of both, summed."""
+def check_arch_card_vs_cpu(cfg, params, dev, tag: str = "[archs]", seq: int = 0) -> dict:
+    """The model cut to one layer group at full width, on 2 x ``seq``
+    tokens (default ARCH_CARD_CPU_SEQ), on the card against device="cpu":
+    the forward's logits within CARD_CPU_BF16_TOL of the largest |logit|
+    (how the step's gradients are held), beside both sides' distance from
+    the float32 forward of the same weights on the CPU (not a gate); then
+    one train step (check_bf16_step).
+    An embeddings-input model is fed embeddings and M-RoPE positions
+    (arch_batch) in the forward and the step.  Returns the launches of
+    both, summed."""
     cut, p = cut_depth(cfg, params, 1)
-    batch = SyntheticLMDataset(cfg.vocab_size, ARCH_CARD_CPU_SEQ, CARD_CPU_BATCH).batch(0)
-    toks = torch.from_numpy(batch["tokens"]).long()
+    seq = seq or ARCH_CARD_CPU_SEQ
+    batch = arch_batch(cut, CARD_CPU_BATCH, seq, seed=0)
+    inputs = torch_inputs(batch)
     model = build_model(cut)
     card_routes, cpu_routes = [], []
     with expert_choice(card_routes):
-        (card, _), counts, _ = counted(lambda: model.forward(p, {"tokens": toks.to(dev)}))
+        (card, _), counts, _ = counted(lambda: model.forward(p, torch_inputs(batch, dev)))
     if counts != exactly(counts, flash_attention_bf16=cut.num_layers):
         raise RuntimeError(f"{cut.name} forward: launch counts {counts}")
     host = tree_map(lambda x: x.cpu(), p)
     with expert_choice(cpu_routes):
-        plain, _ = model.forward(host, {"tokens": toks})
+        plain, _ = model.forward(host, inputs)
     card, plain = card.float().cpu(), plain.float()
     err, top = float((card - plain).abs().max()), float(plain.abs().max())
     share = err / (CARD_CPU_BF16_TOL * top)
     if not share <= 1.0:
         raise RuntimeError(f"{cut.name} forward on the card vs the CPU: max abs err {err}, "
                            f"{100 * share:.1f}% of {CARD_CPU_BF16_TOL} x max|logit| {top}")
-    exact, _ = build_model(replace(cut, dtype="float32")).forward(
-        tree_map(lambda x: x.float(), host), {"tokens": toks})
-    log(f"[archs] {cfg.name} cut to {cut.num_layers} layer(s) at full width, {CARD_CPU_BATCH} x "
-        f"{ARCH_CARD_CPU_SEQ} tokens: forward logits vs device='cpu' max abs err {err:.3e}, "
+    cpu32 = []  # an MoE layer's float32 expert choice on the CPU
+    with expert_choice(cpu32):
+        exact, _ = build_model(replace(cut, dtype="float32")).forward(
+            tree_map(lambda x: x.float(), host), inputs)
+    log(f"{tag} {cfg.name} cut to {cut.num_layers} layer(s) at full width, {CARD_CPU_BATCH} x "
+        f"{seq} {inputs_word(cut)}: forward logits vs device='cpu' max abs err {err:.3e}, "
         f"{100 * share:.1f}% of {CARD_CPU_BF16_TOL} x max|logit| ({top:.3f}); from the float32 "
         f"forward: card {float((card - exact).abs().max()):.3e}, plain "
         f"{float((plain - exact).abs().max()):.3e}; launches {counts}")
-    what = f"[archs] {cut.name} cut to {cut.num_layers} layer(s)"
+    what = f"{tag} {cut.name} cut to {cut.num_layers} layer(s)"
     if not cut.moe:
         step = check_bf16_step(cut, p, dev, batch, what)
         return {k: counts[k] + step[k] for k in counts}
@@ -1991,22 +2142,21 @@ def check_arch_card_vs_cpu(cfg, params, dev) -> dict:
     groups = cut.num_layers // len(cut.block_pattern)
     if groups * sum(tfm._is_moe_pos(cut, i) for i in range(len(cut.block_pattern))) != 1:
         raise RuntimeError(f"{what}: one MoE layer expected, so that one expert choice routes it")
-    log(f"{what}: {routing_flips(card_routes, cpu_routes)} of {toks.numel()} tokens routed to "
+    log(f"{what}: {routing_flips(card_routes, cpu_routes)} of {batch['labels'].size} tokens routed to "
         f"other experts on the card than on the CPU in bf16 (the MoE layer's top-{cut.top_k} "
         f"dispatch, unforced)")
     step = check_bf16_step(cut, p, dev, batch, what, moe_routes=[])
     total = {k: counts[k] + step[k] for k in counts}
     cut32 = replace(cut, dtype="float32")
     p32 = tree_map(lambda x: x.float(), p)
-    card32, cpu32 = [], []
+    card32 = []
     with expert_choice(card32):
-        counted(lambda: build_model(cut32).forward(p32, {"tokens": toks.to(dev)}))
-    with expert_choice(cpu32):
-        build_model(cut32).forward(tree_map(lambda x: x.cpu(), p32), {"tokens": toks})
+        counted(lambda: build_model(cut32).forward(p32, torch_inputs(batch, dev)))
+    p32 = tree_map(lambda x: x.cpu(), p32)  # check_card_vs_cpu copies it to each side
     flips32 = routing_flips(card32, cpu32)
     if flips32:
         raise RuntimeError(f"{what} in float32: {flips32} tokens routed differently")
-    check_card_vs_cpu(cut32, p32, dev, seq=ARCH_CARD_CPU_SEQ, steps=1, tag="[archs] float32,")
+    check_card_vs_cpu(cut32, p32, dev, seq=seq, steps=1, tag=f"{tag} float32,")
     step32 = step_launches(cut32, "full")  # check_card_vs_cpu held its launches to these
     return {k: total[k] + step32[k] for k in total}
 
@@ -2051,26 +2201,55 @@ def max_diff(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def check_cut_decode(cfg, params, dev) -> dict:
+def check_cut_decode(cfg, params, dev, tag: str = "[archs]") -> dict:
     """The bf16 decode at one layer group at full width: step by step
     (greedy_decode fed every token) over 2 x ARCH_CARD_CPU_SEQ tokens, or,
     for a model with local layers, over one sequence ARCH_PAST_WINDOW
     tokens longer than its window, so the local layers' ring-buffer cache
     wraps; each step's logits within MODEL_BF16_TOL of the largest |logit|
     of the prefill of the same tokens (where K1's window cuts).  Returns
-    the launches (K1 bf16 once a layer in the prefill, none in decode)."""
+    the launches (K1 bf16 once a layer in the prefill, none in decode).  An
+    embeddings-input model decodes its embeddings with their M-RoPE
+    positions (arch_batch, decode_embeds)."""
     cut, p = cut_depth(cfg, params, 1)
     local = "attn_local" in cut.block_pattern
     b, n = (1, cut.sliding_window + ARCH_PAST_WINDOW) if local else (CARD_CPU_BATCH, ARCH_CARD_CPU_SEQ)
-    toks = torch.from_numpy(
-        SyntheticLMDataset(cut.vocab_size, n, b, seed=4).batch(0)["tokens"]).long().to(dev)
+    inputs = torch_inputs(arch_batch(cut, b, n, seed=4), dev)
     model = build_model(cut)
-    rec = DecodeLogits(model)
-    _, dec, dec_s = counted(lambda: greedy_decode(rec, p, toks, 1, n + 1))
-    (prefill, _), pre, _ = counted(lambda: model.forward(p, {"tokens": toks}))
+    prefill_routes, decode_routes = [], []
+    with expert_choice(prefill_routes):
+        (prefill, _), pre, _ = counted(lambda: model.forward(p, inputs))
+
+    def decode(force=None):
+        with expert_choice(decode_routes, force) if cut.moe else contextlib.nullcontext():
+            if "embeds" in inputs:
+                (_, out), counts, wall = counted(lambda: decode_embeds(
+                    model, p, inputs["embeds"], inputs["positions"], 1))
+                return out, counts, wall
+            rec = DecodeLogits(model)
+            _, counts, wall = counted(lambda: greedy_decode(rec, p, inputs["tokens"], 1, n + 1))
+            return rec.logits(), counts, wall
+
+    decoded, dec, dec_s = decode()
+    routed = ""
+    if cut.moe:
+        # A token whose k-th and (k+1)-th router probabilities lie closer
+        # than the prefill's and the decode's bf16 roundings apart goes to
+        # other experts in each, and its logits then differ by those
+        # experts' whole contribution: the decode is held routed as the
+        # prefill chose, step by step (the float32 decode, unforced, is
+        # held by check_f32_decode or check_arch_decode).
+        if len(prefill_routes) != 1 or len(decode_routes) != n:
+            raise RuntimeError(f"{cut.name}: one MoE layer expected, so that one expert choice routes it")
+        flips = routing_flips([prefill_routes[0]], [torch.cat(decode_routes, dim=1)])
+        unforced = decode_share(decoded, prefill)[1]
+        decode_routes.clear()
+        decoded, dec2, _ = decode([prefill_routes[0][:, i:i + 1] for i in range(n)])
+        dec = {k: dec[k] + dec2[k] for k in dec}
+        routed = (f"; {flips} of {b * n} tokens routed to other experts unforced ({100 * unforced:.1f}% "
+                  f"of the limit unforced), so the decode is held routed as the prefill chose")
     if dec != exactly(dec) or pre != exactly(pre, flash_attention_bf16=cut.num_layers):
         raise RuntimeError(f"{cut.name} decode / prefill launches {dec} / {pre}")
-    decoded = rec.logits()
     err, share = decode_share(decoded, prefill)
     if not share <= 1.0:
         raise RuntimeError(f"{cut.name} bf16 decode at one layer group vs the prefill: max abs err "
@@ -2081,9 +2260,9 @@ def check_cut_decode(cfg, params, dev) -> dict:
         past_err, past_share = decode_share(decoded[:, w:], prefill[:, w:])
         past = (f"; past the {w}-token window ({ARCH_PAST_WINDOW} steps) {past_err:.3e}, "
                 f"{100 * past_share:.1f}%")
-    log(f"[archs] {cfg.name} cut to {cut.num_layers} layer(s) at full width, bf16 decode of {b} x "
-        f"{n} tokens in {dec_s:.1f} s: every step's logits within {MODEL_BF16_TOL} x max|logit| of "
-        f"the prefill of the same tokens (max abs err {err:.3e}, {100 * share:.1f}% of it{past}); "
+    log(f"{tag} {cfg.name} cut to {cut.num_layers} layer(s) at full width, bf16 decode of {b} x "
+        f"{n} {inputs_word(cut)} in {dec_s:.1f} s: every step's logits within {MODEL_BF16_TOL} x max|logit| of "
+        f"the prefill of the same inputs (max abs err {err:.3e}, {100 * share:.1f}% of it{past}){routed}; "
         f"launches: decode none, prefill {pre}")
     return pre
 
@@ -2160,16 +2339,44 @@ def _shares(got, want, tol) -> list:
             for g, w in zip(got, want)]
 
 
-def check_arch_flash(dev, gen) -> None:
-    """K1 and its backward in bf16 at the architectures' layer shapes, on
-    arch_flash_inputs, against the plain version in float32 with the
-    controls that show the check can see a wrong softcap or window (see
-    ARCH_FLASH_Q_SCALE); then each timed beside the bf16 plain version,
-    SDPA where it computes the same function (causal, no softcap; GQA by
-    ``enable_gqa``) and the bound: the larger of its bytes and its
-    operations on the visible pairs at the bf16 tensor-core rate."""
+def control_attention(q, k, v, do, *, head_of, shift: int = 0, mask_kind: str = "causal",
+                      window: int = 0, attn_softcap: float = 0.0) -> tuple:
+    """A control for check_arch_flash: the float32 plain attention with
+    query head h reading kv head ``head_of[h]`` and the causal diagonal
+    moved by ``shift`` keys (row i sees keys j <= i + shift); its output
+    and (dq, dk, dv) by autograd."""
+    with torch.enable_grad():
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        ke, ve = kg[:, :, head_of], vg[:, :, head_of]  # (b, t, nh, hd)
+        scores = torch.einsum("bshd,bthd->bhst", qg, ke) * (q.shape[-1] ** -0.5)
+        if attn_softcap:
+            scores = attn_softcap * torch.tanh(scores / attn_softcap)
+        if mask_kind != "full":
+            qpos = torch.arange(q.shape[1], device=q.device)[:, None]
+            kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+            ok = kpos <= qpos + shift
+            if mask_kind == "window" and window > 0:
+                ok &= (qpos - kpos) < window
+            scores = torch.where(ok, scores, torch.full((), ref.NEG_INF, device=q.device))
+        out = torch.einsum("bhst,bthd->bshd", torch.softmax(scores, dim=-1), ve)
+        return (out.detach(), *torch.autograd.grad(out, (qg, kg, vg), do))
+
+
+def check_arch_flash(dev, gen, archs=ARCHS, tag: str = "[archs]") -> None:
+    """K1 and its backward in bf16 at the layer shapes of ``archs``
+    (ARCH_FLASH_CASES whose name starts with one), on arch_flash_inputs,
+    against the plain version in float32 with the controls that show the
+    check can see a wrong softcap, window, GQA head mapping or causal
+    diagonal (see ARCH_FLASH_Q_SCALE); then each timed beside the bf16
+    plain version, SDPA where it computes the same function (causal, no
+    softcap; GQA by ``enable_gqa``) and the bound: the larger of its bytes
+    and its operations on the visible pairs at the bf16 tensor-core
+    rate."""
     names = ("output", "dq", "dk", "dv")
-    for name, case in ARCH_FLASH_CASES.items():
+    cases = {n: c for n, c in ARCH_FLASH_CASES.items() if n.split(" ")[0] in archs}
+    if not cases:
+        raise RuntimeError(f"{tag}: no K1 layer shape of {archs} in ARCH_FLASH_CASES")
+    for name, case in cases.items():
         b, s, t, nh, nkv, hd, mask, win, cap = case
         q, k, v, do = arch_flash_inputs(gen, case, dev)
         kw = dict(mask_kind=mask, window=win, attn_softcap=cap)
@@ -2191,20 +2398,29 @@ def check_arch_flash(dev, gen) -> None:
             raise RuntimeError(f"K1 bf16 {name} {case} vs the float32 plain version: "
                                + ", ".join(f"{n} {100 * x:.1f}%" for n, x in zip(names, shares))
                                + f" of {FLASH_BF16_TOL} x its max")
-        controls = {"softcap 0": dict(attn_softcap=0.0)} if cap else {}
+        controls = {"softcap 0": lambda: plain(attn_softcap=0.0)} if cap else {}
         if mask == "window":
-            controls.update({f"window {win - 1}": dict(window=win - 1),
-                             f"window {win + 1}": dict(window=win + 1)})
+            controls.update({f"window {win - 1}": lambda: plain(window=win - 1),
+                             f"window {win + 1}": lambda: plain(window=win + 1)})
+        group = nh // nkv
+        heads = torch.arange(nh, device=q.device)
+        if group > 1 and nkv > 1:  # h % nkv differs from h // group
+            controls[f"kv head h % {nkv} (not h // {group})"] = lambda: control_attention(
+                *f32, head_of=heads % nkv, **kw)
+        if mask == "causal":
+            for d in (-1, 1):
+                controls[f"diagonal {d:+d} key"] = lambda d=d: control_attention(
+                    *f32, head_of=heads // group, shift=d, **kw)
         seen = []
-        for cname, over in controls.items():
-            missed = _shares(plain(**over), want, FLASH_BF16_TOL)
+        for cname, control in controls.items():
+            missed = _shares(control(), want, FLASH_BF16_TOL)
             if not min(missed) > 1.0:
                 raise RuntimeError(f"K1 bf16 {name} {case}: the control with {cname} stays within "
                                    f"the limit ({', '.join(f'{n} {100 * x:.1f}%' for n, x in zip(names, missed))}), "
                                    "so the check cannot see that fault")
             seen.append(f"{cname} misses it by {min(missed):.1f}x or more")
         del want
-        log(f"[archs] K1 bf16 {name} {case} vs the float32 plain version (q x {ARCH_FLASH_Q_SCALE}, "
+        log(f"{tag} K1 bf16 {name} {case} vs the float32 plain version (q x {ARCH_FLASH_Q_SCALE}, "
             f"mask-edge keys): " + ", ".join(f"{n} {100 * x:.1f}%" for n, x in zip(names, shares))
             + f" of {FLASH_BF16_TOL} x its max" + (f"; controls: {'; '.join(seen)}" if seen else ""))
 
@@ -2226,7 +2442,7 @@ def check_arch_flash(dev, gen) -> None:
         b_ms, b_by = bound(2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
                            BWD_FLOPS_PER_PAIR_HD * hd * pairs, BF16_FLOPS)
         fmt = lambda x: "null" if x is None else f"{x:.4f}"  # noqa: E731
-        log(f"[archs] K1 bf16 {name} {case}: forward {ms:.4f} ms, plain {plain_ms:.4f}, SDPA "
+        log(f"{tag} K1 bf16 {name} {case}: forward {ms:.4f} ms, plain {plain_ms:.4f}, SDPA "
             f"{fmt(lib)}, bound {f_ms:.4f} ({f_by}, {100 * f_ms / ms:.1f}%); backward {bwd:.4f} ms, "
             f"plain {plain_bwd:.4f}, SDPA {fmt(lib_bwd)}, bound {b_ms:.4f} ({b_by}, "
             f"{100 * b_ms / bwd:.1f}%)")
@@ -2296,7 +2512,270 @@ def phase_archs(dev) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# The rest of the attention family: qwen2.5-32b, qwen1.5-32b,
+# phi3.5-moe-42b-a6.6b, qwen2-vl-7b
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Arch2ServeResult:
+    logits: torch.Tensor  # the first prefill's
+    prefill_s: float  # the second, warm prefill's wall
+    busy: str  # the profiled prefill's device busy share
+    decode_in: dict  # the decode prompt: {'tokens'} or {'embeds', 'positions'}
+    new: torch.Tensor  # (b, ARCH_NEW) greedy tokens
+    decode_s: float
+    launches: dict  # {segment: launch counts}
+
+
+def run_arch2_serving(cfg, params, dev) -> Arch2ServeResult:
+    """Serve ``cfg`` at its served depth through the port's entry points:
+    prefill 2 x 512 (Model.forward) twice and once more profiled, then a
+    greedy decode of ARCH_NEW tokens after a 2 x 32 prompt (greedy_decode;
+    an embeddings-input model's prompt as embeddings through decode_embeds,
+    its new tokens through the embedding table), each segment counted."""
+    model = build_model(cfg)
+    b, s = ARCH_PREFILL_DEFAULT
+    inputs = torch_inputs(arch_batch(cfg, b, s, seed=1, grid=ARCH2_GRID), dev)
+    launches = {}
+
+    def segment(name, fn):
+        out, launches[name], wall = counted(fn)
+        return out, wall
+
+    (logits, _), _ = segment("prefill", lambda: model.forward(params, inputs))
+    _, prefill_s = segment("prefill again", lambda: model.forward(params, inputs))
+    (_, wall_us, events), _ = segment("prefill profiled", lambda: _profiled(
+        lambda: model.forward(params, inputs), host_ops=False))
+    busy = sum(_device_us(e) for e in events)
+    busy = (f"device busy {busy / 1e3:.2f} ms of a {wall_us / 1e3:.2f} ms profiled prefill "
+            f"({100 * busy / wall_us:.1f}%)" if events else
+            "device time not measured (the profiler saw no device events)")
+    pb, ps = ARCH_PROMPT
+    prompt = torch_inputs(arch_batch(cfg, pb, ps, seed=2), dev)
+    if "embeds" in prompt:
+        gh, gw = ARCH2_SMALL_GRID
+        prompt["positions"] = mrope_positions(pb, gh, gw, ps + ARCH_NEW - gh * gw).to(dev)
+        (new, _), decode_s = segment("decode", lambda: decode_embeds(
+            model, params, prompt["embeds"], prompt["positions"], ARCH_NEW))
+    else:
+        toks, decode_s = segment("decode", lambda: greedy_decode(
+            model, params, prompt["tokens"], ARCH_NEW, ps + ARCH_NEW))
+        new = toks[:, ps:]
+    return Arch2ServeResult(logits, prefill_s, busy, prompt, new, decode_s, launches)
+
+
+def check_arch2_serving(res: Arch2ServeResult, cfg) -> dict:
+    """Launches as derived (K1 bf16 once per layer a prefill, none in
+    decode), finite logits of the right shape, and the greedy tokens in the
+    vocabulary.  Returns the launches, summed."""
+    total = {}
+    for name, got in res.launches.items():
+        k1 = cfg.num_layers if name.startswith("prefill") else 0
+        if got != exactly(got, flash_attention_bf16=k1):
+            raise RuntimeError(f"{cfg.name} {name}: launch counts {got}, expected K1 bf16 {k1} only")
+        total = {k: total.get(k, 0) + v for k, v in got.items()}
+    b, s = ARCH_PREFILL_DEFAULT
+    if res.logits.shape != (b, s, cfg.vocab_size) or not bool(torch.isfinite(res.logits).all()):
+        raise RuntimeError(f"{cfg.name} prefill logits: shape {tuple(res.logits.shape)} or not finite")
+    new = res.new
+    if new.shape != (ARCH_PROMPT[0], ARCH_NEW) or int(new.min()) < 0 or int(new.max()) >= cfg.vocab_size:
+        raise RuntimeError(f"{cfg.name} decode: tokens of shape {tuple(new.shape)} or out of the vocabulary")
+    return total
+
+
+def check_f32_decode(cfg, params, res: Arch2ServeResult, tag: str = "[archs2]") -> dict:
+    """A float32 copy of ``params`` (the served model or its first layer
+    groups) decodes the served decode's inputs step by step, its prompt and
+    all but the last greedy token, and each step's logits must equal the
+    float32 prefill of the same inputs within DECODE_TOL, the reference's
+    own prefill / decode tolerance.  Returns the launches (the prefill's
+    K1)."""
+    cfg32 = replace(cfg, dtype="float32")
+    p32 = tree_map(lambda x: x.float(), params)
+    model = build_model(cfg32)
+    fed = res.new[:, :-1]
+    if "embeds" in res.decode_in:
+        emb, pos = res.decode_in["embeds"], res.decode_in["positions"]
+        (_, got), dec, dec_s = counted(lambda: decode_embeds(model, p32, emb, pos, ARCH_NEW, tokens=fed))
+        inputs = {"embeds": torch.cat([emb.float(), p32["embed"]["table"][fed]], dim=1),
+                  "positions": pos[:, :emb.shape[1] + fed.shape[1]]}
+    else:
+        toks = torch.cat([res.decode_in["tokens"], fed], dim=1)
+        rec = DecodeLogits(model)
+        _, dec, dec_s = counted(lambda: greedy_decode(rec, p32, toks, 1, toks.shape[1] + 1))
+        got = rec.logits()
+        inputs = {"tokens": toks}
+    (want, _), pre, _ = counted(lambda: model.forward(p32, inputs))
+    if dec != exactly(dec) or pre != exactly(pre, flash_attention=cfg.num_layers):
+        raise RuntimeError(f"{cfg.name} float32 decode / prefill launches {dec} / {pre}")
+    err = max_diff(got, want)
+    if not torch.allclose(got, want, atol=DECODE_TOL, rtol=DECODE_TOL):
+        raise RuntimeError(f"{cfg.name} float32 decode at {cfg.num_layers} layers vs its prefill: "
+                           f"max abs err {err} beyond {DECODE_TOL}")
+    b, n = got.shape[:2]
+    log(f"{tag} {cfg.name} float32 copy at {cfg.num_layers} layers: decode of {b} x {n} steps "
+        f"({inputs_word(cfg)} prompt, then the served greedy tokens) in {dec_s:.1f} s, every step "
+        f"within {DECODE_TOL} of the float32 prefill of the same inputs (max abs err {err:.3e}, "
+        f"max|logit| {float(want.abs().max()):.3f}); launches {pre}")
+    return pre
+
+
+def run_arch2_checkpoint(cfg, params, dev, work, tag: str = "[archs2]") -> dict:
+    """The model cut to one layer group through the checkpoint lifecycle:
+    a full-mode save, the feasibility gate on the measured bytes,
+    migrate_job to site B, the restore there on the card, and the prefill
+    from the restored params bit-identical to the prefill from the saved
+    ones, every leaf bit-identical; each step counted (K1 bf16 once a layer
+    in each prefill, nothing else).  Returns the launches, summed."""
+    cut, p = cut_depth(cfg, params, 1)
+    model = build_model(cut)
+    inputs = torch_inputs(arch_batch(cut, CARD_CPU_BATCH, ARCH_CARD_CPU_SEQ, seed=5), dev)
+    root = os.path.join(work, cut.name)
+    mgr = CheckpointManager(os.path.join(root, "siteA"), job=cut.name, mode="full")
+    (logits, _), pre, _ = counted(lambda: model.forward(p, inputs))
+    _, saved, save_s = counted(lambda: mgr.save(0, p))
+    nbytes = mgr.latest_bytes
+    v = feasibility.evaluate(nbytes, BANDWIDTH_BPS, WINDOW_S)
+    if not bool(v.feasible):
+        raise RuntimeError(f"feasibility gate refused {nbytes} B at {BANDWIDTH_BPS} b/s: {v}")
+    (dst, _), moved, migrate_s = counted(lambda: migrate_job(
+        mgr, os.path.join(root, "siteB"), bandwidth_bps=BANDWIDTH_BPS, window_s=WINDOW_S))
+    (back, _), restored, restore_s = counted(lambda: dst.restore(p, device=dev))
+    (logits_b, _), pre_b, _ = counted(lambda: model.forward(back, inputs))
+    for name, got, k1 in (("prefill", pre, cut.num_layers), ("save", saved, 0),
+                          ("migrate", moved, 0), ("restore", restored, 0),
+                          ("prefill restored", pre_b, cut.num_layers)):
+        if got != exactly(got, flash_attention_bf16=k1):
+            raise RuntimeError(f"{cut.name} checkpoint lifecycle {name}: launch counts {got}")
+    equal = all(x.dtype == y.dtype and x.device == y.device and torch.equal(x, y)
+                for (_, x), (_, y) in zip(flatten_with_paths(back), flatten_with_paths(p)))
+    if not equal or not torch.equal(logits_b, logits):
+        raise RuntimeError(f"{cut.name}: the full-mode checkpoint's restore at site B is not exact")
+    shutil.rmtree(root)
+    log(f"{tag} {cfg.name} cut to {cut.num_layers} layer(s): full checkpoint {nbytes} B saved in "
+        f"{save_s:.3f} s; gate: class {int(v.workload_class)}, t_transfer "
+        f"{float(v.t_transfer_s):.4f} s, t_cost {float(v.t_cost_s):.4f} s, feasible True; "
+        f"migrate_job {migrate_s:.3f} s; restored on the card at site B in {restore_s:.3f} s, "
+        f"every leaf and the prefill's logits bit-identical; launches: save, migrate, restore "
+        f"none, each prefill K1 bf16 {cut.num_layers}")
+    return {k: pre[k] + pre_b[k] for k in pre}
+
+
+def gib(n: float) -> str:
+    return f"{n / 2 ** 30:.2f} GiB"
+
+
+def phase_archs2(dev) -> dict:
+    """qwen2.5-32b, qwen1.5-32b, phi3.5-moe-42b-a6.6b (24 of 32 layers) and
+    qwen2-vl-7b in bf16 at full width, each drawn once on the card: (a)
+    served at its served depth, with the full model's S_j and the gate's
+    verdict on it; then (b) the first layer groups kept (a contiguous copy)
+    and the full model freed: the float32 decode, one group against
+    device="cpu", its bf16 decode against its prefill, and its checkpoint
+    lifecycle; each model freed before the next, and the card's memory
+    checked back at the phase's start; then (c) K1 at their layer shapes.
+    Returns the launches of the counted runs, summed."""
+    t_phase = time.perf_counter()
+    total = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_archs2_") as work:
+        for arch in ARCHS2:
+            t_arch = time.perf_counter()
+            full = get_config(arch)
+            cfg = replace(full, num_layers=ARCH2_LAYERS.get(arch, full.num_layers))
+            torch.cuda.reset_peak_memory_stats()
+            free0, card = torch.cuda.mem_get_info()
+            t0 = time.perf_counter()
+            params = build_model(cfg).init(
+                device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            free1, _ = torch.cuda.mem_get_info()
+            peak_init = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            leaves = [x for _, x in flatten_with_paths(params)]
+            n = sum(x.numel() for x in leaves)
+            nbytes = sum(x.numel() * x.element_size() for x in leaves)
+            if n != param_count(cfg):
+                raise RuntimeError(f"{arch}: {n} params, param_count says {param_count(cfg)}")
+            depth = (f"{cfg.num_layers} layers" if cfg.num_layers == full.num_layers else
+                     f"{cfg.num_layers} of its {full.num_layers} layers (the {full.num_layers}-layer "
+                     f"model's {param_count(full)} params do not fit the card in bf16)")
+            log(f"[archs2] {arch}: {n} params ({active_param_count(cfg)} active a token; param_count "
+                f"agrees), {depth}, bf16 weights {nbytes} B, drawn on the card in {init_s:.2f} s; "
+                f"card {card} B, free {free0} B before the draw and {free1} B after; peak allocated "
+                f"during the draw {peak_init} B ({gib(peak_init)}, {100 * peak_init / card:.1f}% of "
+                f"the card)")
+            del leaves
+
+            res = run_arch2_serving(cfg, params, dev)
+            add(check_arch2_serving(res, cfg))
+            pb, ps = ARCH_PROMPT
+            b, s = ARCH_PREFILL_DEFAULT
+            sj = ser.tree_bytes(params)
+            per_group = ser.tree_bytes(params["groups"]) // cfg.num_groups
+            sj_full = sj + (full.num_groups - cfg.num_groups) * per_group
+            v = feasibility.evaluate(sj_full, BANDWIDTH_BPS, WINDOW_S)
+            served = "" if sj == sj_full else f" (the {cfg.num_layers} layers served: {sj} B)"
+            log(f"[archs2] {arch} serving at {cfg.num_layers} layers: prefill {b} x {s} {inputs_word(cfg)} "
+                f"{res.prefill_s * 1e3:.2f} ms (warm; K1 bf16 {cfg.num_layers} launches), {res.busy}; "
+                f"greedy decode {pb} x {ps} {inputs_word(cfg)} + {ARCH_NEW}: "
+                f"{pb * ARCH_NEW / res.decode_s:.1f} new tok/s ({(ps + ARCH_NEW - 1) / res.decode_s:.1f} "
+                f"steps/s, no K1 launch); peak allocated while serving "
+                f"{torch.cuda.max_memory_allocated()} B "
+                f"({100 * torch.cuda.max_memory_allocated() / card:.1f}% of the card)")
+            torch.cuda.reset_peak_memory_stats()
+            log(f"[archs2] {arch} S_j at full depth (full mode): {sj_full} B{served}; gate at "
+                f"{BANDWIDTH_BPS:.0e} b/s in a {WINDOW_S:.0f} s window: class {int(v.workload_class)}, "
+                f"t_transfer {float(v.t_transfer_s):.2f} s, t_cost {float(v.t_cost_s):.2f} s, "
+                f"feasible {bool(v.feasible)}")
+
+            groups = cfg.num_groups if arch in ARCH2_F32_FULL_DEPTH else ARCH2_F32_GROUPS
+            cut, p = cut_depth(cfg, params, min(groups, cfg.num_groups))
+            if cut.num_groups < cfg.num_groups:
+                # a contiguous copy of the first groups, kept on the host while
+                # the full stack is freed: the card never holds both
+                p = {**p, "groups": tree_map(lambda x: x.cpu(), p["groups"])}
+            del params
+            torch.cuda.empty_cache()
+            p = {**p, "groups": tree_map(lambda x: x.to(dev), p["groups"])}
+            add(check_f32_decode(cut, p, res))
+            del res
+            if cut.num_groups > 1:  # the one-group checks keep the first group only
+                cut, p = cut_depth(cut, p, 1)
+                p = {**p, "groups": tree_map(lambda x: x.clone(), p["groups"])}
+                torch.cuda.empty_cache()
+            add(check_arch_card_vs_cpu(cut, p, dev, tag="[archs2]", seq=ARCH2_CARD_CPU_SEQ))
+            add(check_cut_decode(cut, p, dev, tag="[archs2]"))
+            add(run_arch2_checkpoint(cut, p, dev, work))
+            del p
+            torch.cuda.empty_cache()
+            left = torch.cuda.memory_allocated() - base
+            if left > ARCH2_LEAK_BYTES:
+                raise RuntimeError(f"{arch}: {left} B still allocated on the card after its model was "
+                                   f"freed")
+            log(f"[archs2] {arch}: {time.perf_counter() - t_arch:.1f} s in all; peak allocated after "
+                f"serving {torch.cuda.max_memory_allocated()} B; freed: {left} B allocated beyond the "
+                f"phase's start, {torch.cuda.mem_get_info()[0]} B free")
+    check_arch_flash(dev, torch.Generator().manual_seed(3), ARCHS2, "[archs2]")
+    log(f"[archs2] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main() -> int:
+    t_start = time.perf_counter()
+
+    def stamp(what: str) -> None:
+        log(f"[time] {what} done, {time.perf_counter() - t_start:.1f} s since the start")
+
     kind = phase_device()
     dev = resolve("cuda")
     phase_build()
@@ -2312,6 +2791,7 @@ def main() -> int:
     stats["quantize_int8"], stats["dequantize_int8"] = check_quantize(dev, gen, leaves)
     cpu, captured = run_cpu_paths()
     stats["decide_dest"] = check_decide(dev, captured)
+    stamp("build and kernels")
     for name, st in stats.items():
         lib = "null" if st["library_ms"] is None else f"{st['library_ms']:.4f}"
         log(f"[kernels] {name}: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
@@ -2352,27 +2832,37 @@ def main() -> int:
     check_bf16_prefill(logits16, cfg, params, prompts)
     log(f"[slice] micro-lm in bf16: prefill of {BATCH} x {PROMPT} tokens {prefill16_s * 1e3:.2f} ms "
         f"(first call); launches {counts16}")
+    stamp("slice")
     fleet_launches = run_fleet_paths(dev, cpu)
     launches["decide_dest"] = sum(fleet_launches.values())
     check_spawn_pool(dev)
     phase_profile(cfg, params, prompts, dev)
     phase_profile_fleet(dev)
     phase_host_split(dev)
+    stamp("fleet and profile")
     train = phase_train(cfg, params, dev)
     for name in ("flash_attention", "flash_attention_bf16", "quantize_int8", "dequantize_int8"):
         launches[name] += train[name]
     for name in ("flash_attention_bwd", "flash_attention_bwd_bf16"):
         launches[name] = train[name]
     log(f"[train] launches of the training runs {train}")
+    stamp("train")
     launches["decide_dest"] += phase_serving(dev)
+    stamp("serving")
     examples = phase_examples(dev)
     for name, n in examples.items():
         launches[name] += n
     log(f"[examples] launches of the examples {examples}; all counted paths {launches}")
+    stamp("examples")
     archs = phase_archs(dev)
     for name, n in archs.items():
         launches[name] += n
     log(f"[archs] launches of the architectures' runs {archs}; all counted paths {launches}")
+    archs2 = phase_archs2(dev)
+    for name, n in archs2.items():
+        launches[name] += n
+    log(f"[archs2] launches of the architectures' runs {archs2}; all counted paths {launches}")
+    stamp("archs and archs2")
 
     rows = []
     for name, st in stats.items():

@@ -64,8 +64,16 @@ def _torch_dtype(name: str) -> torch.dtype:
 
 
 def tree_bytes(tree) -> int:
-    """Exact raw (mode='full') checkpoint payload size in bytes."""
-    return int(sum(x.size * x.dtype.itemsize for _, x, _ in _flatten(tree)))
+    """Exact raw (mode='full') checkpoint payload size in bytes, from the
+    leaves' shapes and types (no leaf is copied to the host)."""
+    total = 0
+    for _, x in flatten_with_paths(tree):
+        if isinstance(x, torch.Tensor):
+            total += x.numel() * x.element_size()
+        else:
+            a = np.asarray(x)
+            total += a.size * a.dtype.itemsize
+    return int(total)
 
 
 @dataclass

@@ -238,6 +238,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
+    if cfg.is_encdec or cfg.input_mode == "embeddings":
+        raise SystemExit("serve demo targets token-input decoder-only archs")
     model = build_model(cfg)
     params = model.init(args.seed, device=device)
     gen = torch.Generator().manual_seed(args.seed + 1)

@@ -111,7 +111,7 @@ def apply_attention(
     p: dict,
     x: torch.Tensor,  # (b, s, d)
     *,
-    positions: torch.Tensor,  # (b, s)
+    positions: torch.Tensor,  # (b, s) or (b, s, 3): rope ids only
     rope_type: str,
     rope_theta: float,
     mrope_sections=(),
@@ -120,7 +120,9 @@ def apply_attention(
     window: int = 0,
     attn_softcap: float = 0.0,
 ) -> torch.Tensor:
-    """Self-attention over a full sequence (train / prefill)."""
+    """Self-attention over a full sequence (train / prefill).  The mask
+    runs on sequence indices (K1 takes no positions); ``positions`` only
+    feed the rope, so M-RoPE's t / h / w ids may repeat or jump."""
     q, k, v = _project_qkv(p, x, x, qk_norm=qk_norm)
     q = rope_lib.apply_positional(q, positions, rope_type, rope_theta, mrope_sections)
     k = rope_lib.apply_positional(k, positions, rope_type, rope_theta, mrope_sections)
@@ -149,7 +151,7 @@ def apply_attention_decode(
     cache: dict,  # {'k','v'}: (b, T, nkv, hd)
     index: int,  # absolute position of the token (same for the batch)
     *,
-    positions: torch.Tensor,  # (b, 1)
+    positions: torch.Tensor,  # (b, 1) or (b, 1, 3): rope ids only
     rope_type: str,
     rope_theta: float,
     mrope_sections=(),

@@ -25,8 +25,8 @@ def truncated_normal(gen: torch.Generator, shape, std: float, dtype, device) -> 
     versions resample, several times slower on the CPU)."""
     x = torch.empty(shape, dtype=torch.float32, device=gen.device)
     x.uniform_(2.0 * _CDF_LO - 1.0, 2.0 * _CDF_HI - 1.0, generator=gen)
-    x.erfinv_().mul_(math.sqrt(2.0)).clamp_(-_TRUNC, _TRUNC)
-    return (x * std).to(device=device, dtype=dtype)
+    x.erfinv_().mul_(math.sqrt(2.0)).clamp_(-_TRUNC, _TRUNC).mul_(std)
+    return x.to(device=device, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -32,17 +32,23 @@ class Model(torch.nn.Module):
         return tfm.init_lm(gen, self.cfg, resolve(device))
 
     def loss(self, params: dict, batch: dict, *, remat_policy: str = "full"):
-        """(loss, {"ce", "aux"}) for batch = {'tokens', 'labels'}, with
-        autograd on: the training path."""
+        """(loss, {"ce", "aux"}) for batch = {'tokens' or 'embeds',
+        'labels', optionally 'positions'}, with autograd on: the training
+        path."""
         return tfm.lm_loss(params, batch, self.cfg, remat_policy=remat_policy)
 
     @torch.inference_mode()
     def forward(self, params: dict, batch: dict):
-        """(logits (b, s, vocab), aux) for batch = {'tokens': (b, s)}."""
+        """(logits (b, s, vocab), aux) for batch = {'tokens': (b, s)} or
+        {'embeds': (b, s, d)}, optionally with 'positions' (b, s) or, for
+        M-RoPE, (b, s, 3) t / h / w ids."""
         return tfm.lm_forward(params, batch, self.cfg)
 
     @torch.inference_mode()
     def decode_step(self, params: dict, cache: dict, batch: dict):
+        """(logits (b, vocab), cache) for batch = {'token': (b,) or
+        'embeds': (b, 1, d), 'index': int, optionally 'positions' (b, 1) or
+        (b, 1, 3)}; the cache is updated in place."""
         return tfm.lm_decode_step(params, cache, batch, self.cfg)
 
     def cache_specs(self, batch: int, max_len: int) -> dict:

@@ -3,8 +3,10 @@
 The ported blocks are ``attn`` (causal) and ``attn_local`` (sliding
 window), each followed by a dense MLP or, at the positions ``cfg.moe``
 and ``cfg.moe_pattern`` pick, an MoE MLP whose aux losses the forward
-sums.  Mamba and xLSTM blocks, M-RoPE, encoder-decoder and embedding
-inputs are not ported yet (``check_ported`` raises).  The layer stack is
+sums.  Inputs are token ids or precomputed embeddings (``batch["embeds"]``,
+qwen2-vl's stubbed vision frontend), and positions (b, s) or, for M-RoPE,
+(b, s, 3) t / h / w streams.  Mamba and xLSTM blocks, encoder-decoder and
+learned positions are not ported yet (``check_ported`` raises).  The layer stack is
 ``num_groups`` repetitions of ``cfg.block_pattern`` with group params
 stacked on a leading dim, as in the JAX package, so the param tree and its
 checkpoint paths match; the JAX ``lax.scan`` over groups is a Python loop,
@@ -21,6 +23,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.convert import flatten_with_paths, tree_map
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
@@ -82,11 +85,9 @@ def check_ported(cfg: ModelConfig) -> None:
         if kind not in ATTN_KINDS:
             raise NotImplementedError(
                 f"{cfg.name}: block {kind!r} is not ported yet (ROADMAP Queue 1, item 10)")
-    if cfg.rope_type == "mrope":
-        raise NotImplementedError(f"{cfg.name}: M-RoPE is not ported yet (ROADMAP Queue 1, item 10)")
-    if cfg.is_encdec or cfg.input_mode != "tokens" or cfg.learned_pos:
+    if cfg.is_encdec or cfg.learned_pos:
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder / embedding inputs are not ported yet "
+            f"{cfg.name}: encoder-decoder / learned positions are not ported yet "
             "(ROADMAP Queue 1, item 10)")
 
 
@@ -165,12 +166,6 @@ def apply_block_decode(p, x, kind: str, cfg: ModelConfig, positions, index: int,
 # ---------------------------------------------------------------------------
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
-
-
 def _index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
@@ -186,23 +181,41 @@ def _unembed_table(params, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
+def _init_groups(gen, cfg: ModelConfig, device) -> dict:
+    """The stacked layer groups, drawn group by group in the generator's
+    order and written into their slot of leaves allocated once, shaped
+    (num_groups, ...): the peak is the model plus one group's tree, not two
+    copies of the stack (65-70 GB each for the 32 B models)."""
+    stacked = None
+    for g in range(cfg.num_groups):
+        tree = {f"b{i}": init_block(gen, cfg, _is_moe_pos(cfg, i), device)
+                for i in range(len(cfg.block_pattern))}
+        if stacked is None:
+            stacked = tree_map(lambda x: x.new_empty((cfg.num_groups, *x.shape)), tree)
+        for (_, dst), (_, src) in zip(flatten_with_paths(stacked), flatten_with_paths(tree)):
+            dst[g].copy_(src)
+        del tree
+    return stacked
+
+
 def init_lm(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     check_ported(cfg)
     dt = _dtype(cfg)
     params: Dict[str, Any] = {"embed": init_embed(gen, cfg.vocab_size, cfg.d_model, dt, device)}
     if not cfg.tie_embeddings:
         params["unembed"] = {"table": init_embed(gen, cfg.d_model, cfg.vocab_size, dt, device)["table"]}
-    params["groups"] = _stack([
-        {f"b{i}": init_block(gen, cfg, _is_moe_pos(cfg, i), device)
-         for i in range(len(cfg.block_pattern))}
-        for _ in range(cfg.num_groups)
-    ])
+    params["groups"] = _init_groups(gen, cfg, device)
     params["final_norm"] = init_norm(cfg.d_model, cfg.norm_type, dt, device)
     return params
 
 
 def embed_inputs(params, cfg: ModelConfig, batch: dict):
-    x = apply_embed(params["embed"], batch["tokens"])
+    """(b, s, d) activations: ``batch["embeds"]`` in the model's type, else
+    the embedding of ``batch["tokens"]``."""
+    if "embeds" in batch:
+        x = batch["embeds"].to(_dtype(cfg))
+    else:
+        x = apply_embed(params["embed"], batch["tokens"])
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     return x
@@ -210,7 +223,10 @@ def embed_inputs(params, cfg: ModelConfig, batch: dict):
 
 def lm_forward(params: dict, batch: dict, cfg: ModelConfig, *,
                remat_policy: str = "full") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (b, s, vocab), aux_loss)."""
+    """Returns (logits (b, s, vocab), aux_loss).  ``batch`` holds 'tokens'
+    (b, s) or 'embeds' (b, s, d), and optionally 'positions' (b, s) or
+    (b, s, 3); the attention mask runs on sequence indices whatever the
+    positions."""
     check_ported(cfg)
     x = embed_inputs(params, cfg, batch)
     b, s = x.shape[0], x.shape[1]
@@ -271,11 +287,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
 
 
 def lm_decode_step(params: dict, cache: dict, batch: dict, cfg: ModelConfig):
-    """One-token decode; batch = {'token': (b,), 'index': int}.  Returns
-    (logits (b, vocab), cache); the cache is updated in place."""
+    """One-token decode; batch = {'token': (b,) | 'embeds': (b, 1, d),
+    'index': int, optionally 'positions': (b, 1) or (b, 1, 3)}.  The
+    positions feed the rope (default: ``index``); the cache slot and the
+    mask use ``index``.  Returns (logits (b, vocab), cache); the cache is
+    updated in place."""
     check_ported(cfg)
     index = int(batch["index"])
-    x = embed_inputs(params, cfg, {"tokens": batch["token"][:, None]})
+    if "embeds" in batch:
+        x = embed_inputs(params, cfg, {"embeds": batch["embeds"]})
+    else:
+        x = embed_inputs(params, cfg, {"tokens": batch["token"][:, None]})
     b = x.shape[0]
     positions = batch.get("positions")
     if positions is None:

@@ -41,12 +41,16 @@ def _params_device(params) -> torch.device:
 def value_and_grad(model: Model, params, batch, remat_policy: str):
     """((loss, metrics), grads) of ``model.loss`` at ``params``: the
     counterpart of ``jax.value_and_grad(..., has_aux=True)``.  The params
-    themselves are left as they are (autograd runs on detached leaves)."""
+    themselves are left as they are (autograd runs on detached leaves).  A
+    leaf the loss does not reach (the embedding table when the batch holds
+    'embeds') gets a zero gradient, as JAX gives it."""
     live = tree_map(lambda x: x.detach().requires_grad_(True), params)
     with torch.enable_grad():
         loss, metrics = model.loss(live, batch, remat_policy=remat_policy)
         paths, leaves = zip(*flatten_with_paths(live))
-        grads = dict(zip(paths, torch.autograd.grad(loss, leaves)))
+        got = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = {p: torch.zeros_like(x) if g is None else g
+                 for p, x, g in zip(paths, leaves, got)}
     return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
             tree_map_with_path(lambda path, _: grads[path], params))
 

@@ -1,7 +1,15 @@
-"""qwen3-1.7b, gemma2-2b and granite-moe-1b-a400m in the port on the CPU
-against the JAX package, at their ``reduced()`` sizes, with the JAX
-package's weights carried across (``convert.params_from_numpy``) and inputs
-made with numpy from a seed.
+"""The seven attention-family architectures (qwen3-1.7b, gemma2-2b,
+granite-moe-1b-a400m, qwen2.5-32b, qwen1.5-32b, phi3.5-moe-42b-a6.6b and
+qwen2-vl-7b) in the port on the CPU against the JAX package, at their
+``reduced()`` sizes, with the JAX package's weights carried across
+(``convert.params_from_numpy``) and inputs made with numpy from a seed.
+
+The qkv biases initialise to zeros in both packages, so every pair here
+first sets them to the same seeded nonzero values: a bias added in the
+wrong place, or not at all, then shows.  qwen2-vl is fed embeddings and
+three distinct position streams (a patch grid, then text), since one
+stream repeated three times rotates every M-RoPE section by the same angle
+and is plain RoPE.
 
 Tolerances: float32 on both sides, differing only in the order of sums:
 logits and MoE outputs 1e-5; the loss 1e-6 relative; gradients 1e-4 of
@@ -11,6 +19,8 @@ against the reference's decode 1e-5 as the dense model's
 (tests/test_torch_models.py).  bf16: the repo's bf16 tolerance, 2e-2.
 """
 import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +38,11 @@ from repro_torch.models import moe
 from repro_torch.models.model import build_model
 from repro_torch.train.train_step import value_and_grad
 
-ARCHS = ("qwen3-1.7b", "gemma2-2b", "granite-moe-1b-a400m")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+from chip_smoke import mrope_positions  # noqa: E402
+
+ARCHS = ("qwen3-1.7b", "gemma2-2b", "granite-moe-1b-a400m", "qwen2.5-32b", "qwen1.5-32b",
+         "phi3.5-moe-42b-a6.6b", "qwen2-vl-7b")
 TOL = 1e-5
 LOSS_RTOL = 1e-6
 GRAD_TOL = 1e-4
@@ -38,13 +52,36 @@ BF16_TOL = 2e-2
 DECODE_TOL = 2e-4
 
 
+# seeded qkv biases: std 0.5, near the size of a reduced model's projections
+BIAS_STD = 0.5
+
+
+def _with_biases(tree, seed=11):
+    """``tree`` (numpy leaves) with every qkv bias set to seeded nonzero
+    values."""
+    rng = np.random.default_rng(seed)
+
+    def walk(t):
+        out = {}
+        for k, v in t.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            elif k in ("bq", "bk", "bv"):
+                out[k] = (rng.standard_normal(v.shape) * BIAS_STD).astype(v.dtype)
+            else:
+                out[k] = v
+        return out
+
+    return walk(tree)
+
+
 def _pair(arch, dtype="float32"):
     jcfg = dataclasses.replace(jget_config(arch).reduced(), dtype=dtype)
     cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
     jmodel = jbuild_model(jcfg)
-    jparams = jmodel.init(jax.random.PRNGKey(0))
-    params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
-    return jcfg, jmodel, jparams, cfg, build_model(cfg), params
+    host = _with_biases(jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(0))))
+    jparams = jax.tree.map(jnp.asarray, host)
+    return jcfg, jmodel, jparams, cfg, build_model(cfg), params_from_numpy(host, "cpu")
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -54,6 +91,22 @@ def reduced(request):
 
 def _tokens(seed, b, s, vocab):
     return np.random.default_rng(seed).integers(0, vocab, (b, s)).astype(np.int32)
+
+
+def _inputs(cfg, seed, b, s):
+    """{name: numpy array}: tokens, or for an embeddings-input model
+    embeddings and (b, s, 3) positions of a 2 x 3 patch grid then text."""
+    if cfg.input_mode != "embeddings":
+        return {"tokens": _tokens(seed, b, s, cfg.vocab_size)}
+    rng = np.random.default_rng(seed)
+    return {"embeds": rng.standard_normal((b, s, cfg.d_model)).astype(np.float32),
+            "positions": mrope_positions(b, 2, 3, s - 6).numpy().astype(np.int32)}
+
+
+def _both(batch):
+    """(the JAX package's batch, the port's) of a numpy batch."""
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: torch.from_numpy(v) for k, v in batch.items()})
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -85,27 +138,31 @@ def test_init_tree_matches_reference(arch, dtype):
     assert ours == theirs
     if cfg.moe:
         assert ("groups/b0/moe/router", (cfg.num_groups, 64, 4), "float32") in ours
+    assert any(p.endswith("attn/bq") for p, _, _ in ours) == cfg.qkv_bias
 
 
 def test_forward_matches_reference(reduced):
     jcfg, jmodel, jparams, cfg, model, params = reduced
-    toks = _tokens(1, 2, 40, cfg.vocab_size)  # 40 > gemma2's reduced window of 16
-    want, jaux = jmodel.forward(jparams, {"tokens": jnp.asarray(toks)})
-    got, aux = model.forward(params, {"tokens": torch.from_numpy(toks)})
+    jb, tb = _both(_inputs(cfg, 1, 2, 40))  # 40 > gemma2's reduced window of 16
+    want, jaux = jmodel.forward(jparams, jb)
+    got, aux = model.forward(params, tb)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
     np.testing.assert_allclose(float(aux), float(jaux), rtol=TOL, atol=0)
     assert (float(aux) > 0) == cfg.moe
 
 
 def test_loss_and_grads_match_reference(reduced):
-    """lm_loss (ce and aux) and every gradient against jax.value_and_grad."""
+    """lm_loss (ce and aux) and every gradient against jax.value_and_grad
+    (qwen2-vl's embedding table, which embeddings never reach, at 0 on
+    both)."""
     jcfg, jmodel, jparams, cfg, model, params = reduced
     toks = _tokens(2, 2, 40, cfg.vocab_size + 1) - 1  # some labels -1: masked
-    batch = {"tokens": np.clip(toks, 0, None), "labels": toks}
-    (jloss, jm), jgrads = jax.jit(jax.value_and_grad(jmodel.loss, has_aux=True))(
-        jparams, {k: jnp.asarray(v) for k, v in batch.items()})
-    (loss, m), grads = value_and_grad(model, params, {k: torch.from_numpy(v) for k, v in batch.items()},
-                                      "full")
+    batch = {**_inputs(cfg, 2, 2, 40), "labels": toks}
+    if "tokens" in batch:
+        batch["tokens"] = np.clip(toks, 0, None)
+    jb, tb = _both(batch)
+    (jloss, jm), jgrads = jax.jit(jax.value_and_grad(jmodel.loss, has_aux=True))(jparams, jb)
+    (loss, m), grads = value_and_grad(model, params, tb, "full")
     for got, want in ((loss, jloss), (m["ce"], jm["ce"]), (m["aux"], jm["aux"])):
         np.testing.assert_allclose(float(got), float(want), rtol=LOSS_RTOL, atol=0)
     jleaves = jax.tree_util.tree_flatten_with_path(jgrads)[0]
@@ -113,23 +170,32 @@ def test_loss_and_grads_match_reference(reduced):
     assert [p for p, _ in ours] == [tuple(str(k.key) for k in p) for p, _ in jleaves]
     for (path, g), (_, w) in zip(ours, jleaves):
         w = np.asarray(w)
+        if "embeds" in batch and path == ("embed", "table"):
+            assert not g.any() and not w.any()
+            continue
+        assert np.abs(w).max() > 0, path
         np.testing.assert_allclose(g.numpy(), w, atol=GRAD_TOL * np.abs(w).max(), rtol=0,
                                    err_msg="/".join(path))
 
 
 def test_decode_matches_reference_decode(reduced):
     """Below the window, step-by-step decode equals the reference's decode
-    and its cache."""
+    and its cache; qwen2-vl's steps take embeddings and (b, 1, 3)
+    positions."""
     jcfg, jmodel, jparams, cfg, model, params = reduced
     S = 12
-    toks = _tokens(3, 2, S, cfg.vocab_size)
+    inp = _inputs(cfg, 3, 2, S)
     jcache = jmodel.init_cache(2, S)
     cache = model.init_cache(2, S, device="cpu")
     jstep = jax.jit(jmodel.decode_step)
     for i in range(S):
-        want, jcache = jstep(
-            jparams, jcache, {"token": jnp.asarray(toks[:, i]), "index": jnp.int32(i)})
-        got, cache = model.decode_step(params, cache, {"token": torch.from_numpy(toks[:, i]), "index": i})
+        if "tokens" in inp:
+            jb, tb = _both({"token": inp["tokens"][:, i]})
+        else:
+            jb, tb = _both({"embeds": inp["embeds"][:, i:i + 1],
+                            "positions": inp["positions"][:, i:i + 1]})
+        want, jcache = jstep(jparams, jcache, {**jb, "index": jnp.int32(i)})
+        got, cache = model.decode_step(params, cache, {**tb, "index": i})
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
     for blk in cache:
         np.testing.assert_allclose(cache[blk]["k"].numpy(), np.asarray(jcache[blk]["k"]),
@@ -198,22 +264,22 @@ def test_bf16_forward_matches_reference(arch):
     jcfg, jmodel, jparams, cfg, model, params = _pair(arch, "bfloat16")
     assert all(x.dtype == (torch.float32 if p[-1] == "router" else torch.bfloat16)
                for p, x in flatten_with_paths(params))
-    toks = _tokens(6, 2, 24, cfg.vocab_size)
-    want, _ = jmodel.forward(jparams, {"tokens": jnp.asarray(toks)})
-    got, _ = model.forward(params, {"tokens": torch.from_numpy(toks)})
+    jb, tb = _both(_inputs(cfg, 6, 2, 24))
+    want, _ = jmodel.forward(jparams, jb)
+    got, _ = model.forward(params, tb)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
                                atol=BF16_TOL, rtol=BF16_TOL)
 
 
-def test_chip_smoke_archs_phase_on_cpu(monkeypatch, tmp_path):
-    """chip_smoke's [archs] phase, the sequence the card runs at full width,
-    on the CPU at the reduced sizes in bf16: the kernels' wrappers swapped
-    for their plain versions, counting as the kernels do, so every launch
-    count the phase derives and every check it makes runs here.  The plain
-    versions stand in computed in float32 and rounded to the inputs' type,
-    as the kernels keep their scores in float32: the phase holds K1 to the
-    float32 plain version on inputs whose scores bf16 cannot carry."""
+def use_plain_stand_ins(monkeypatch, tmp_path):
+    """chip_smoke, imported, with the kernels' wrappers swapped for their
+    plain versions, counting as the kernels do, and the card's timers,
+    profiler and synchronisation stubbed, so that a phase the card runs at
+    full width runs on the CPU at the reduced sizes.  The plain versions
+    stand in computed in float32 and rounded to the inputs' type, as the
+    kernels keep their scores in float32: the phases hold K1 to the float32
+    plain version on inputs whose scores bf16 cannot carry."""
     import os
     import sys
 
@@ -256,6 +322,16 @@ def test_chip_smoke_archs_phase_on_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "_profiled", lambda fn, **kw: (fn(), 1.0, []))
     monkeypatch.setattr(chip_smoke, "get_config", lambda arch: dataclasses.replace(
         get_config(arch).reduced(), dtype="bfloat16"))
+    monkeypatch.setattr(chip_smoke.tempfile, "tempdir", str(tmp_path))
+    ops.reset_launch_counts()
+    return chip_smoke
+
+
+def test_chip_smoke_archs_phase_on_cpu(monkeypatch, tmp_path):
+    """chip_smoke's [archs] phase, the sequence the card runs at full width,
+    on the CPU at the reduced sizes in bf16 (use_plain_stand_ins), so every
+    launch count the phase derives and every check it makes runs here."""
+    chip_smoke = use_plain_stand_ins(monkeypatch, tmp_path)
     monkeypatch.setattr(chip_smoke, "ARCH_PREFILL", {"gemma2-2b": (1, 40)})  # past the window 16
     monkeypatch.setattr(chip_smoke, "ARCH_PREFILL_DEFAULT", (2, 24))
     monkeypatch.setattr(chip_smoke, "ARCH_CARD_CPU_SEQ", 16)
@@ -264,9 +340,8 @@ def test_chip_smoke_archs_phase_on_cpu(monkeypatch, tmp_path):
     for name, value in (("MOE_LIFE_STEPS", 4), ("MOE_LIFE_PREEMPT", 2), ("MOE_LIFE_SAVE_EVERY", 1)):
         monkeypatch.setattr(chip_smoke, name, value)
     monkeypatch.setattr(chip_smoke, "ARCH_FLASH_CASES", {
-        "local": (1, 40, 40, 4, 2, 16, "window", 16, 50.0), "global": (2, 24, 24, 4, 2, 16, "causal", 0, 0.0)})
-    monkeypatch.setattr(chip_smoke.tempfile, "tempdir", str(tmp_path))
-    ops.reset_launch_counts()
+        "gemma2-2b local": (1, 40, 40, 4, 2, 16, "window", 16, 50.0),
+        "gemma2-2b global": (2, 24, 24, 4, 2, 16, "causal", 0, 0.0)})
     total = chip_smoke.phase_archs(torch.device("cpu"))
     # per arch: 4 prefills at full depth (two, the decoded tokens', the
     # restored params'), and at one group's depth its forward, a step (2 x
