@@ -101,6 +101,28 @@ Phases, each of which raises on failure:
                 K1 and its backward at the four layer shapes (GQA groups 5,
                 1, 4 and 7) with controls for a wrong head mapping or causal
                 diagonal; every run counted as derived.
+ 13. archs3 -- jamba-v0.1-52b (16 of its 32 layers: 103 GB do not fit),
+                xlstm-1.3b and whisper-tiny in bf16 at full width, each
+                drawn once on the card from seed 0 and freed before the
+                next: jamba and xlstm served (prefill 2 x 512, greedy decode
+                2 x 32 + 16) with S_j of the full depth through the gate;
+                jamba's first Mamba mixer in float32, a 512-token prefill's
+                state carried on by 16 decode steps against the forward over
+                528, its blocks b0 (Mamba), b1 (Mamba + MoE) and b4
+                (attention) each on the card against device="cpu", and a
+                full checkpoint lifecycle of group 0's b0 / b1 (bf16 beside
+                float32 A_log and D); xlstm's sLSTM loop timed, a float32
+                copy's decode held to its prefill, one layer group against
+                device="cpu" in float32, that group's training lifecycle
+                (migrated == unmigrated) and an int8 save and restore of its
+                sLSTM block's params; whisper's encoder over 2 x
+                1,500 frames (K1 with a full mask), greedy decode from
+                encdec_init_cache, a float32 copy's decode held to
+                decode_train, forward and a train step against
+                device="cpu", full and int8 checkpoint lifecycles; then K1
+                and its backward at jamba's and whisper's layer shapes, with
+                controls for a causal mask in place of the full one and for
+                the ragged tail's last key cut off; every run counted.
 Then one JSON line of per-kernel numbers, and last the ok line.  Nothing
 runs on the CPU in place of the card: without a card the script exits 1.
 """
@@ -150,8 +172,11 @@ from repro_torch.launch import dryrun as dryrun_launcher  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.launch.serve import greedy_decode  # noqa: E402
+from repro_torch.models import encdec as encdec_lib  # noqa: E402
+from repro_torch.models import mamba as mamba_lib  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.models import xlstm as xlstm_lib  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.optim.adamw import (  # noqa: E402
     AdamWConfig, apply_updates, global_norm, init_opt_state)
@@ -367,7 +392,10 @@ MOE_LIFE_STEPS, MOE_LIFE_PREEMPT, MOE_LIFE_SAVE_EVERY = 12, 6, 3
 # prefill, gemma2's local and global layers over its 4,608-token prefill
 # (softcap 50), granite's prefill ([archs]); then the prefills of
 # [archs2]: GQA groups of 5 (qwen2.5), 1 with 40 kv heads (qwen1.5's MHA),
-# 4 (phi3.5-moe) and 7 (qwen2-vl).
+# 4 (phi3.5-moe) and 7 (qwen2-vl); then [archs3]'s: jamba's attention
+# layers (no RoPE), whisper's encoder (1,500 frames, every query sees every
+# key; 1,500 = 23 x 64 + 28, so the last key tile is ragged) and its
+# decoder's self-attention over 64 tokens.
 ARCH_FLASH_CASES = {
     "qwen3-1.7b": (2, 512, 512, 16, 8, 128, "causal", 0, 0.0),
     "gemma2-2b local": (1, 4608, 4608, 8, 4, 256, "window", 4096, 50.0),
@@ -377,6 +405,9 @@ ARCH_FLASH_CASES = {
     "qwen1.5-32b": (2, 512, 512, 40, 40, 128, "causal", 0, 0.0),
     "phi3.5-moe-42b-a6.6b": (2, 512, 512, 32, 8, 128, "causal", 0, 0.0),
     "qwen2-vl-7b": (2, 512, 512, 28, 4, 128, "causal", 0, 0.0),
+    "jamba-v0.1-52b": (2, 512, 512, 32, 8, 128, "causal", 0, 0.0),
+    "whisper-tiny encoder": (2, 1500, 1500, 6, 6, 64, "full", 0, 0.0),
+    "whisper-tiny decoder": (2, 64, 64, 6, 6, 64, "causal", 0, 0.0),
 }
 # These shapes are held on inputs where the softcap and the mask's edge
 # decide the answer.  Q is scaled by ARCH_FLASH_Q_SCALE, so the scores
@@ -396,7 +427,11 @@ ARCH_FLASH_CASES = {
 # with softcap 0, with the window one key shorter and one key longer, with
 # query head h reading kv head h % nkv in place of h // group (where the
 # two differ), and with the causal diagonal moved by one key either way,
-# must each miss it in the output and in every gradient.
+# must each miss it in the output and in every gradient.  A full mask has
+# no edge inside: there the last key (the ragged tail's) is turned toward
+# the first query row of each group's first head, and the controls are the
+# float32 plain version with a causal mask in place of the full one and
+# with that last key cut off (its dk, dv rows 0).
 ARCH_FLASH_Q_SCALE, ARCH_FLASH_EDGE = 8.0, 6.0
 # The [archs2] phase: the rest of the attention family, in bf16 at full
 # width, their random weights drawn on the card from seed 0.  Served at
@@ -425,6 +460,41 @@ ARCH2_CARD_CPU_SEQ = 32
 # After a model is freed the card must hold no more than this beyond what
 # it held before the model was drawn.
 ARCH2_LEAK_BYTES = 1 << 30
+# The [archs3] phase: the last three assigned architectures, in bf16 at full
+# width, their random weights drawn on the card from seed 0.  jamba is
+# served at 2 of its 4 eight-layer groups (16 layers: 14 Mamba, 2
+# attention, 8 MoE; 52.1 GB): its 32 layers' 103.1 GB do not fit the card.
+ARCHS3 = ("jamba-v0.1-52b", "xlstm-1.3b", "whisper-tiny")
+ARCH3_LAYERS = {"jamba-v0.1-52b": 16}
+# jamba's first Mamba mixer in float32 at full width over 2 x MAMBA_SEQ
+# tokens (two chunks of 264), against a MAMBA_PREFILL-token prefill's state
+# followed by MAMBA_SEQ - MAMBA_PREFILL decode steps: the prefill's scan
+# crosses its chunk boundary and hands its conv and SSM state to decode.
+# Held within DECODE_TOL of the largest |output| (the decode's recurrence
+# and the doubling scan sum the same products in other orders).
+MAMBA_SEQ, MAMBA_PREFILL = 528, 512
+# jamba's blocks held on the card against device="cpu" one by one, in bf16
+# on 2 x ARCH2_CARD_CPU_SEQ activations: b0 (Mamba + MLP), b1 (Mamba + MoE,
+# the CPU routed as the card) and b4 (attention + MLP); one group of jamba
+# (13 B params) is too large for a CPU step.
+JAMBA_BLOCKS = (0, 1, 4)
+# Its checkpoint lifecycle holds group 0's b0 / b1 without b1's experts'
+# weights: they are 5.3 GB of its 6.4 GB (~16 s of save, migrate and
+# restore), bf16 leaves like b0's MLP, and [archs2] checkpoints experts.
+JAMBA_CKPT_DROP = ("wi", "wg", "wo")
+# xlstm's training lifecycle at one layer group (7 mLSTM + 1 sLSTM, 504 M
+# params; a 7.1 GB training state, ~12 s a full save on the H100 machine)
+# on 2 x 64 tokens a step: site A trains to step 3 and is preempted (its
+# one checkpoint: the save interval lies beyond the run); site B finishes
+# at 6.  Over 4 steps the loss did not fall on the card (11.147, 11.097,
+# 11.100, 11.188); over 6 it does.  Then an int8 save and restore of its
+# sLSTM block's params (its training state's took 7 s of zlib).
+XLSTM_LIFE_BATCH, XLSTM_LIFE_SEQ = 2, 64
+XLSTM_LIFE_STEPS, XLSTM_LIFE_PREEMPT, XLSTM_LIFE_SAVE_EVERY = 6, 3, 7
+# xlstm's first sLSTM layer's scan timed over 2 x this many tokens.
+SLSTM_TIME_SEQ = 512
+# whisper's frame embeddings (the stubbed conv frontend's output): N(0, 1).
+WHISPER_FRAME_STD = 1.0
 # K4 at the upper fleet shape: 131,072 jobs x 100 sites (104 padded), one cell
 UPPER_JOBS, UPPER_SITES = 131072, 100
 # A cell of more sites than K4 stages at a time (128): 1,024 jobs x 300 sites
@@ -580,12 +650,23 @@ def saves_in(start: int, stop: int, save_every: int) -> int:
     return sum(1 for st in range(start + 1, stop + 1) if st % save_every == 0) + 1
 
 
+def attn_layers(cfg) -> int:
+    """Layers whose self-attention runs K1 in one forward: the attention
+    blocks of the layer pattern (a Mamba, mLSTM or sLSTM block runs none),
+    or an encoder-decoder's encoder and decoder layers (its
+    cross-attention is the plain attend_ref)."""
+    if cfg.is_encdec:
+        return cfg.encoder_layers + cfg.num_layers
+    return cfg.num_groups * sum(kind.startswith("attn") for kind in cfg.block_pattern)
+
+
 def step_launches(cfg, remat_policy: str) -> dict:
     """K1 and backward launches of one train step, from the code: K1 once
     per attention layer in the forward and once more in remat's recompute
     (its custom Function is no matmul, so "dots" reruns it too), the
-    backward kernel once per layer; counted under the model's type."""
-    layers = cfg.num_layers  # every ported block kind is attention
+    backward kernel once per attention layer; counted under the model's
+    type."""
+    layers = attn_layers(cfg)
     k1 = layers * (1 if remat_policy == "none" else 2)
     tag = "_bf16" if cfg.dtype == "bfloat16" else ""
     out = dict.fromkeys(ops.launch_counts(), 0)
@@ -662,10 +743,13 @@ def run_train_lifecycle(cfg, workdir, *, mode, grad_compress, device, batch=TRAI
     kw = dict(mode=mode, grad_compress=grad_compress, batch=batch, seq=seq, device=dev)
     params_ref = None
     if reference:
+        # its save interval lies beyond the run: it saves once, at its end
+        # (the run only gives params_ref; a save at ``steps`` would be a
+        # second copy of that one)
         ref_tr = make_trainer(cfg, os.path.join(workdir, "unmigrated"), steps=steps,
-                              save_every=steps, **kw)
+                              save_every=steps + 1, **kw)
         segment("unmigrated", ref_tr.run, lambda: train_launches(
-            cfg, ref_tr, steps=steps, saves=saves_in(0, steps, steps)))
+            cfg, ref_tr, steps=steps, saves=saves_in(0, steps, steps + 1)))
         params_ref = ref_tr.params
     a = make_trainer(cfg, os.path.join(workdir, "siteA"), steps=steps, save_every=save_every,
                      preempt_at=preempt, **kw)
@@ -1438,7 +1522,7 @@ def check_card_vs_cpu(cfg, params, dev, *, seq=TRAIN_SEQ, steps=2, tag="[train]"
     worst = 0.0
     for path, g in flatten_with_paths(g_card):
         want = cpu_of[path]
-        share = float((g.cpu() - want).abs().max()) / (CARD_CPU_GRAD_TOL * float(want.abs().max()))
+        share = float((g.cpu() - want).abs().max()) / (CARD_CPU_GRAD_TOL * grad_scale(path, cpu_of))
         if not share <= 1.0:
             raise RuntimeError(f"first-step gradient {'/'.join(path)} on the card vs the CPU: "
                                f"{100 * share:.1f}% of {CARD_CPU_GRAD_TOL} x its max")
@@ -1449,6 +1533,19 @@ def check_card_vs_cpu(cfg, params, dev, *, seq=TRAIN_SEQ, steps=2, tag="[train]"
     if prof is not None:
         log_step_profile(f"{cfg.name}, {steps} train step(s) on {CARD_CPU_BATCH} x {seq} tokens",
                          *prof)
+
+
+def grad_scale(path: tuple, grads_of: dict) -> float:
+    """The size a gradient leaf is held against: its largest element, but
+    an sLSTM block's input-gate bias's against its input-gate weights':
+    the bias on every ĩ_t cancels in c_t / n_t except through n_0 = 1e-6,
+    so its gradient (~1e-13) is what is left of summing terms of the
+    weights' gradient's size, and rounds relative to them
+    (tests/test_torch_xlstm.py)."""
+    top = float(grads_of[path].abs().max())
+    if path[-2:] == ("slstm", "bi"):
+        top = max(top, float(grads_of[path[:-1] + ("wi",)].abs().max()))
+    return top
 
 
 def check_bf16_train(cfg, params, dev) -> dict:
@@ -1877,8 +1974,14 @@ def arch_batch(cfg, b: int, s: int, *, seed: int, grid=None) -> dict:
     """A numpy batch of ``b`` x ``s`` inputs for ``cfg``: the synthetic LM
     stream's tokens and labels, or for an embeddings-input model seeded
     embeddings (std ARCH2_EMBED_STD), M-RoPE positions of a ``grid``
-    patch grid then text (mrope_positions) and the stream's labels."""
+    patch grid then text (mrope_positions) and the stream's labels; an
+    encoder-decoder's batch also holds seeded frame embeddings (b,
+    encoder_seq, d) of std WHISPER_FRAME_STD."""
     batch = SyntheticLMDataset(cfg.vocab_size, s, b, seed=seed).batch(0)
+    if cfg.is_encdec:
+        rng = np.random.default_rng(seed)
+        frames = rng.standard_normal((b, cfg.encoder_seq, cfg.d_model)) * WHISPER_FRAME_STD
+        return {**batch, "frames": frames.astype(np.float32)}
     if cfg.input_mode != "embeddings":
         return batch
     gh, gw = grid or ARCH2_SMALL_GRID
@@ -1900,6 +2003,8 @@ def torch_inputs(batch: dict, device="cpu") -> dict:
 
 
 def inputs_word(cfg) -> str:
+    if cfg.is_encdec:
+        return "tokens on frames"
     return "embeddings" if cfg.input_mode == "embeddings" else "tokens"
 
 
@@ -2036,7 +2141,7 @@ def check_arch_serving(res: ArchServeResult, cfg, prompts, decode_prompts) -> di
     logits are held by check_arch_decode).  Returns the launches, summed."""
     total = {}
     for name, got in res.launches.items():
-        k1 = cfg.num_layers if name.startswith("prefill") else 0
+        k1 = attn_layers(cfg) if name.startswith("prefill") else 0
         if got != exactly(got, flash_attention_bf16=k1):
             raise RuntimeError(f"{cfg.name} {name}: launch counts {got}, expected K1 bf16 {k1} only")
         total = {k: total.get(k, 0) + v for k, v in got.items()}
@@ -2090,8 +2195,9 @@ def routing_flips(card: list, cpu: list) -> int:
 
 
 def check_arch_card_vs_cpu(cfg, params, dev, tag: str = "[archs]", seq: int = 0) -> dict:
-    """The model cut to one layer group at full width, on 2 x ``seq``
-    tokens (default ARCH_CARD_CPU_SEQ), on the card against device="cpu":
+    """The model cut to one layer group at full width (an encoder-decoder
+    whole), on 2 x ``seq`` tokens (default ARCH_CARD_CPU_SEQ), on the card
+    against device="cpu":
     the forward's logits within CARD_CPU_BF16_TOL of the largest |logit|
     (how the step's gradients are held), beside both sides' distance from
     the float32 forward of the same weights on the CPU (not a gate); then
@@ -2099,7 +2205,7 @@ def check_arch_card_vs_cpu(cfg, params, dev, tag: str = "[archs]", seq: int = 0)
     An embeddings-input model is fed embeddings and M-RoPE positions
     (arch_batch) in the forward and the step.  Returns the launches of
     both, summed."""
-    cut, p = cut_depth(cfg, params, 1)
+    cut, p = (cfg, params) if cfg.is_encdec else cut_depth(cfg, params, 1)
     seq = seq or ARCH_CARD_CPU_SEQ
     batch = arch_batch(cut, CARD_CPU_BATCH, seq, seed=0)
     inputs = torch_inputs(batch)
@@ -2107,7 +2213,7 @@ def check_arch_card_vs_cpu(cfg, params, dev, tag: str = "[archs]", seq: int = 0)
     card_routes, cpu_routes = [], []
     with expert_choice(card_routes):
         (card, _), counts, _ = counted(lambda: model.forward(p, torch_inputs(batch, dev)))
-    if counts != exactly(counts, flash_attention_bf16=cut.num_layers):
+    if counts != exactly(counts, flash_attention_bf16=attn_layers(cut)):
         raise RuntimeError(f"{cut.name} forward: launch counts {counts}")
     host = tree_map(lambda x: x.cpu(), p)
     with expert_choice(cpu_routes):
@@ -2122,12 +2228,13 @@ def check_arch_card_vs_cpu(cfg, params, dev, tag: str = "[archs]", seq: int = 0)
     with expert_choice(cpu32):
         exact, _ = build_model(replace(cut, dtype="float32")).forward(
             tree_map(lambda x: x.float(), host), inputs)
-    log(f"{tag} {cfg.name} cut to {cut.num_layers} layer(s) at full width, {CARD_CPU_BATCH} x "
+    depth = "whole" if cut is cfg else f"cut to {cut.num_layers} layer(s)"
+    log(f"{tag} {cfg.name} {depth} at full width, {CARD_CPU_BATCH} x "
         f"{seq} {inputs_word(cut)}: forward logits vs device='cpu' max abs err {err:.3e}, "
         f"{100 * share:.1f}% of {CARD_CPU_BF16_TOL} x max|logit| ({top:.3f}); from the float32 "
         f"forward: card {float((card - exact).abs().max()):.3e}, plain "
         f"{float((plain - exact).abs().max()):.3e}; launches {counts}")
-    what = f"{tag} {cut.name} cut to {cut.num_layers} layer(s)"
+    what = f"{tag} {cut.name} {depth}"
     if not cut.moe:
         step = check_bf16_step(cut, p, dev, batch, what)
         return {k: counts[k] + step[k] for k in counts}
@@ -2179,7 +2286,7 @@ def check_arch_decode(cfg, params, res: ArchServeResult, dev) -> dict:
     rec = DecodeLogits(model)
     _, dec, _ = counted(lambda: greedy_decode(rec, p32, toks, 1, toks.shape[1] + 1))
     (want, _), pre, _ = counted(lambda: model.forward(p32, {"tokens": toks}))
-    if dec != exactly(dec) or pre != exactly(pre, flash_attention=cfg.num_layers):
+    if dec != exactly(dec) or pre != exactly(pre, flash_attention=attn_layers(cfg)):
         raise RuntimeError(f"{cfg.name} float32 decode / prefill launches {dec} / {pre}")
     got = rec.logits()
     err = float((got - want).abs().max())
@@ -2198,7 +2305,8 @@ def check_arch_decode(cfg, params, res: ArchServeResult, dev) -> dict:
 
 
 def max_diff(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a.float() - b.float()).abs().max())
+    """max |a - b| in float32, on ``a``'s device."""
+    return float((a.float() - b.float().to(a.device)).abs().max())
 
 
 def check_cut_decode(cfg, params, dev, tag: str = "[archs]") -> dict:
@@ -2248,7 +2356,7 @@ def check_cut_decode(cfg, params, dev, tag: str = "[archs]") -> dict:
         dec = {k: dec[k] + dec2[k] for k in dec}
         routed = (f"; {flips} of {b * n} tokens routed to other experts unforced ({100 * unforced:.1f}% "
                   f"of the limit unforced), so the decode is held routed as the prefill chose")
-    if dec != exactly(dec) or pre != exactly(pre, flash_attention_bf16=cut.num_layers):
+    if dec != exactly(dec) or pre != exactly(pre, flash_attention_bf16=attn_layers(cut)):
         raise RuntimeError(f"{cut.name} decode / prefill launches {dec} / {pre}")
     err, share = decode_share(decoded, prefill)
     if not share <= 1.0:
@@ -2267,45 +2375,34 @@ def check_cut_decode(cfg, params, dev, tag: str = "[archs]") -> dict:
     return pre
 
 
+def group_params(params: dict, blocks) -> dict:
+    """Layer group 0's ``blocks`` of a param tree."""
+    return tree_map(lambda x: x[0], {b: params["groups"][b] for b in blocks})
+
+
 def run_moe_lifecycle(cfg, dev, work) -> dict:
     """granite-moe cut to MOE_LIFE_LAYERS at full width through the
     training lifecycle (run_train_lifecycle, full mode, against an
-    unmigrated run), then one int8 save and restore of site A's state at
-    preemption, held to the CPU plain dequantize of the same bytes.
-    Returns the launches, summed."""
+    unmigrated run), then an int8 checkpoint lifecycle (checkpoint_round_trip)
+    of site A's params at preemption, its first layer group: the whole
+    training state's int8 save took 30 s of the card machine's host
+    (zlib), this group's 11 s with its master, m and v; its params hold
+    bf16 attention and experts beside the float32 router.  Returns the
+    launches, summed."""
     cut = replace(cfg, num_layers=MOE_LIFE_LAYERS)
     d = os.path.join(work, "lifecycle")
     res = run_train_lifecycle(cut, d, mode="full", grad_compress=False, device=dev,
                               steps=MOE_LIFE_STEPS, preempt=MOE_LIFE_PREEMPT,
                               save_every=MOE_LIFE_SAVE_EVERY)
     total = check_train_lifecycle(res, tag="[archs]")
-    state = res.state_a
-    floats = sum(1 for _, x in flatten_with_paths(state)
-                 if isinstance(x, torch.Tensor) and x.is_floating_point())
-    mgr = CheckpointManager(os.path.join(d, "int8"), job=cut.name, mode="int8")
-    info, saved, save_s = counted(lambda: mgr.save(res.preempt, state))
-    (back, _), restored, restore_s = counted(lambda: mgr.restore(state, device=dev))
-    if saved != exactly(saved, quantize_int8=floats) or \
-            restored != exactly(restored, dequantize_int8=floats):
-        raise RuntimeError(f"int8 save / restore launches {saved} / {restored}, expected {floats} "
-                           f"K2 / K3")
-    plain = ser.deserialize_tree(ser.from_bytes(mgr.export_bytes()), state, device="cpu")
-    gap = 0.0
-    for (path, x), (_, y), (_, z) in zip(flatten_with_paths(back), flatten_with_paths(plain),
-                                         flatten_with_paths(state)):
-        z = torch.as_tensor(z)
-        if x.dtype != z.dtype or not torch.equal(x.cpu(), y):
-            raise RuntimeError(f"int8 restore of {'/'.join(path)}: {x.dtype} (saved {z.dtype}) or "
-                               f"differs from the CPU plain dequantize of the same bytes")
-        if x.is_floating_point():
-            gap = max(gap, float((x.float() - z.to(x.device).float()).abs().max()))
-    log(f"[archs] {cut.name} int8 save of the state at step {res.preempt} ({res.nbytes} B in full "
-        f"mode): {info.nbytes} B in {save_s:.3f} s, restore {restore_s:.3f} s; K2 {floats}, K3 "
-        f"{floats} launches as derived; restored bit-identical to the CPU plain dequantize of "
-        f"the same bytes, max abs {gap:.3e} from the saved state")
-    for c in (saved, restored):
-        total = {k: total.get(k, 0) + v for k, v in c.items()}
-    del res, state, back, plain
+    blocks = [f"b{i}" for i in range(len(cut.block_pattern))]
+    sub = group_params(res.state_a["params"], blocks)
+    rt = checkpoint_round_trip(sub, cut.name, dev, os.path.join(d, "int8"), mode="int8")
+    log(f"[archs] {cut.name} layer group 0 of the params at step {res.preempt} (the whole training "
+        f"state {res.nbytes} B in full mode): {describe_round_trip(rt, 'int8')}; launches "
+        f"{rt['launches']}, as derived")
+    total = {k: total.get(k, 0) + v for k, v in rt["launches"].items()}
+    del res, sub, rt
     shutil.rmtree(d)
     return total
 
@@ -2314,16 +2411,19 @@ def arch_flash_inputs(gen, case, dev) -> tuple:
     """(q, k, v, do) in bf16 on ``dev`` for K1's case ``case``: randn, q
     times ARCH_FLASH_Q_SCALE, and each key on the mask's edge turned toward
     the query row that must see it and the one that must not (the first
-    head of its group), as ARCH_FLASH_Q_SCALE's comment says."""
+    head of its group), or under a full mask the last key toward the first
+    row, as ARCH_FLASH_Q_SCALE's comment says."""
     b, s, t, nh, nkv, hd, mask, win, _ = case
     q = randn(gen, (b, s, nh, hd), "cpu", ARCH_FLASH_Q_SCALE)
     k, v = (randn(gen, (b, t, nkv, hd), "cpu") for _ in range(2))
     do = randn(gen, (b, s, nh, hd), "cpu")
-    if mask != "full":
+    lead = q[:, :, ::nh // nkv]  # the first head of each group: (b, s, nkv, hd)
+    unit = lead / lead.norm(dim=-1, keepdim=True)
+    if mask == "full":
+        k[:, t - 1] += ARCH_FLASH_EDGE * unit[:, 0]
+    else:
         # distance (query - key) of the last key a row sees, and of the first it must not
         edge = (win - 1, win) if mask == "window" and win > 0 else (0, -1)
-        lead = q[:, :, ::nh // nkv]  # the first head of each group: (b, s, nkv, hd)
-        unit = lead / lead.norm(dim=-1, keepdim=True)
         keys = torch.arange(t)
         for d in edge:
             rows = keys + d
@@ -2362,14 +2462,26 @@ def control_attention(q, k, v, do, *, head_of, shift: int = 0, mask_kind: str = 
         return (out.detach(), *torch.autograd.grad(out, (qg, kg, vg), do))
 
 
+def cut_last_key(f32, kw) -> tuple:
+    """A control for check_arch_flash: the float32 plain attention with the
+    last key and value cut off; (output, dq, dk, dv), the cut key's dk and
+    dv rows 0."""
+    q, k, v, do = f32
+    out = ref.flash_attention_ref(q, k[:, :-1], v[:, :-1], **kw)
+    dq, dk, dv = ref.flash_attention_bwd_ref(q, k[:, :-1], v[:, :-1], do, **kw)
+    pad = lambda g: torch.cat([g, torch.zeros_like(g[:, :1])], dim=1)  # noqa: E731
+    return out, dq, pad(dk), pad(dv)
+
+
 def check_arch_flash(dev, gen, archs=ARCHS, tag: str = "[archs]") -> None:
     """K1 and its backward in bf16 at the layer shapes of ``archs``
     (ARCH_FLASH_CASES whose name starts with one), on arch_flash_inputs,
     against the plain version in float32 with the controls that show the
-    check can see a wrong softcap, window, GQA head mapping or causal
-    diagonal (see ARCH_FLASH_Q_SCALE); then each timed beside the bf16
-    plain version, SDPA where it computes the same function (causal, no
-    softcap; GQA by ``enable_gqa``) and the bound: the larger of its bytes
+    check can see a wrong softcap, window, GQA head mapping, causal
+    diagonal, or a full mask's mask or last key (see ARCH_FLASH_Q_SCALE);
+    then each timed beside the bf16 plain version, SDPA where it computes
+    the same function (causal or full, no softcap; GQA by ``enable_gqa``)
+    and the bound: the larger of its bytes
     and its operations on the visible pairs at the bf16 tensor-core
     rate."""
     names = ("output", "dq", "dk", "dv")
@@ -2411,6 +2523,9 @@ def check_arch_flash(dev, gen, archs=ARCHS, tag: str = "[archs]") -> None:
             for d in (-1, 1):
                 controls[f"diagonal {d:+d} key"] = lambda d=d: control_attention(
                     *f32, head_of=heads // group, shift=d, **kw)
+        if mask == "full":
+            controls["a causal mask"] = lambda: plain(mask_kind="causal")
+            controls[f"keys cut to {t - 1}"] = lambda: cut_last_key(f32, kw)
         seen = []
         for cname, control in controls.items():
             missed = _shares(control(), want, FLASH_BF16_TOL)
@@ -2430,11 +2545,11 @@ def check_arch_flash(dev, gen, archs=ARCHS, tag: str = "[archs]") -> None:
         bwd = time_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw))
         plain_bwd = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, do, **kw)) - plain_ms
         lib = lib_bwd = None
-        if mask == "causal" and not cap:
+        if mask in ("causal", "full") and not cap:
             qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
             qt, kt, vt = (x.requires_grad_(True) for x in (qt, kt, vt))
             sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, is_causal=True, enable_gqa=True)
+                qt, kt, vt, is_causal=mask == "causal", enable_gqa=True)
             lib = time_ms(lambda: sdpa().detach())
             lib_bwd = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot)) - lib
         # forward: q, k, v in, o out; backward: q, k, v, o, do, lse in, dq, dk, dv out
@@ -2572,7 +2687,7 @@ def check_arch2_serving(res: Arch2ServeResult, cfg) -> dict:
     vocabulary.  Returns the launches, summed."""
     total = {}
     for name, got in res.launches.items():
-        k1 = cfg.num_layers if name.startswith("prefill") else 0
+        k1 = attn_layers(cfg) if name.startswith("prefill") else 0
         if got != exactly(got, flash_attention_bf16=k1):
             raise RuntimeError(f"{cfg.name} {name}: launch counts {got}, expected K1 bf16 {k1} only")
         total = {k: total.get(k, 0) + v for k, v in got.items()}
@@ -2608,7 +2723,7 @@ def check_f32_decode(cfg, params, res: Arch2ServeResult, tag: str = "[archs2]") 
         got = rec.logits()
         inputs = {"tokens": toks}
     (want, _), pre, _ = counted(lambda: model.forward(p32, inputs))
-    if dec != exactly(dec) or pre != exactly(pre, flash_attention=cfg.num_layers):
+    if dec != exactly(dec) or pre != exactly(pre, flash_attention=attn_layers(cfg)):
         raise RuntimeError(f"{cfg.name} float32 decode / prefill launches {dec} / {pre}")
     err = max_diff(got, want)
     if not torch.allclose(got, want, atol=DECODE_TOL, rtol=DECODE_TOL):
@@ -2622,49 +2737,156 @@ def check_f32_decode(cfg, params, res: Arch2ServeResult, tag: str = "[archs2]") 
     return pre
 
 
-def run_arch2_checkpoint(cfg, params, dev, work, tag: str = "[archs2]") -> dict:
-    """The model cut to one layer group through the checkpoint lifecycle:
-    a full-mode save, the feasibility gate on the measured bytes,
-    migrate_job to site B, the restore there on the card, and the prefill
-    from the restored params bit-identical to the prefill from the saved
-    ones, every leaf bit-identical; each step counted (K1 bf16 once a layer
-    in each prefill, nothing else).  Returns the launches, summed."""
-    cut, p = cut_depth(cfg, params, 1)
-    model = build_model(cut)
-    inputs = torch_inputs(arch_batch(cut, CARD_CPU_BATCH, ARCH_CARD_CPU_SEQ, seed=5), dev)
-    root = os.path.join(work, cut.name)
-    mgr = CheckpointManager(os.path.join(root, "siteA"), job=cut.name, mode="full")
-    (logits, _), pre, _ = counted(lambda: model.forward(p, inputs))
-    _, saved, save_s = counted(lambda: mgr.save(0, p))
+def checkpoint_round_trip(tree, name: str, dev, root: str, mode: str = "full") -> dict:
+    """``tree`` through the checkpoint lifecycle in ``mode``: a save, the
+    feasibility gate on the measured bytes, migrate_job to site B and the
+    restore there on the card, each counted (int8: K2 once per float leaf in
+    the save and K3 once per float leaf in the restore; nothing else).  The
+    restore must be bit-exact: in full mode every leaf equal to the saved
+    one (its type and device too), in int8 mode to the CPU plain dequantize
+    of the same bytes.  Deletes ``root``.  Returns {"back": the restored
+    tree, "launches": summed, "nbytes", "verdict", "save_s", "migrate_s",
+    "restore_s", "gap": the restore's max abs distance from ``tree``}."""
+    mgr = CheckpointManager(os.path.join(root, "siteA"), job=name, mode=mode)
+    _, saved, save_s = counted(lambda: mgr.save(0, tree))
     nbytes = mgr.latest_bytes
     v = feasibility.evaluate(nbytes, BANDWIDTH_BPS, WINDOW_S)
     if not bool(v.feasible):
         raise RuntimeError(f"feasibility gate refused {nbytes} B at {BANDWIDTH_BPS} b/s: {v}")
     (dst, _), moved, migrate_s = counted(lambda: migrate_job(
         mgr, os.path.join(root, "siteB"), bandwidth_bps=BANDWIDTH_BPS, window_s=WINDOW_S))
-    (back, _), restored, restore_s = counted(lambda: dst.restore(p, device=dev))
-    (logits_b, _), pre_b, _ = counted(lambda: model.forward(back, inputs))
-    for name, got, k1 in (("prefill", pre, cut.num_layers), ("save", saved, 0),
-                          ("migrate", moved, 0), ("restore", restored, 0),
-                          ("prefill restored", pre_b, cut.num_layers)):
-        if got != exactly(got, flash_attention_bf16=k1):
-            raise RuntimeError(f"{cut.name} checkpoint lifecycle {name}: launch counts {got}")
-    equal = all(x.dtype == y.dtype and x.device == y.device and torch.equal(x, y)
-                for (_, x), (_, y) in zip(flatten_with_paths(back), flatten_with_paths(p)))
-    if not equal or not torch.equal(logits_b, logits):
-        raise RuntimeError(f"{cut.name}: the full-mode checkpoint's restore at site B is not exact")
+    (back, _), restored, restore_s = counted(lambda: dst.restore(tree, device=dev))
+    floats = sum(1 for _, x in flatten_with_paths(tree)
+                 if isinstance(x, torch.Tensor) and x.is_floating_point())
+    k2k3 = floats if mode == "int8" else 0
+    for what, got, want in (("save", saved, exactly(saved, quantize_int8=k2k3)),
+                            ("migrate", moved, exactly(moved)),
+                            ("restore", restored, exactly(restored, dequantize_int8=k2k3))):
+        if got != want:
+            raise RuntimeError(f"{name} {mode} checkpoint {what}: launch counts {got}, expected {want}")
+    want = tree if mode == "full" else ser.deserialize_tree(ser.from_bytes(dst.export_bytes()), tree,
+                                                           device="cpu")
+    gap = 0.0
+    for (path, x), (_, y), (_, z) in zip(flatten_with_paths(back), flatten_with_paths(want),
+                                         flatten_with_paths(tree)):
+        if x.dtype != z.dtype or x.device != z.device or not torch.equal(x, y.to(x.device)):
+            raise RuntimeError(f"{name} {mode} restore of {'/'.join(path)}: {x.dtype} on {x.device} "
+                               f"(saved {z.dtype} on {z.device}) or not bit-exact")
+        if x.is_floating_point():
+            gap = max(gap, max_diff(x, z))
     shutil.rmtree(root)
-    log(f"{tag} {cfg.name} cut to {cut.num_layers} layer(s): full checkpoint {nbytes} B saved in "
-        f"{save_s:.3f} s; gate: class {int(v.workload_class)}, t_transfer "
-        f"{float(v.t_transfer_s):.4f} s, t_cost {float(v.t_cost_s):.4f} s, feasible True; "
-        f"migrate_job {migrate_s:.3f} s; restored on the card at site B in {restore_s:.3f} s, "
-        f"every leaf and the prefill's logits bit-identical; launches: save, migrate, restore "
-        f"none, each prefill K1 bf16 {cut.num_layers}")
+    return {"back": back, "launches": {k: saved[k] + restored[k] for k in saved}, "nbytes": nbytes,
+            "verdict": v, "save_s": save_s, "migrate_s": migrate_s, "restore_s": restore_s,
+            "gap": gap}
+
+
+def describe_round_trip(rt: dict, mode: str) -> str:
+    v = rt["verdict"]
+    exact = ("every leaf bit-identical" if mode == "full" else
+             f"bit-identical to the CPU plain dequantize of the same bytes, max abs "
+             f"{rt['gap']:.3e} from the saved leaves")
+    return (f"{mode} checkpoint {rt['nbytes']} B saved in {rt['save_s']:.3f} s; gate: class "
+            f"{int(v.workload_class)}, t_transfer {float(v.t_transfer_s):.4f} s, t_cost "
+            f"{float(v.t_cost_s):.4f} s, feasible True; migrate_job {rt['migrate_s']:.3f} s; "
+            f"restored on the card at site B in {rt['restore_s']:.3f} s, {exact}")
+
+
+def run_arch2_checkpoint(cfg, params, dev, work, tag: str = "[archs2]") -> dict:
+    """The model cut to one layer group: that group's layers through the
+    checkpoint lifecycle (checkpoint_round_trip, full mode; the embedding
+    tables, 2.5-3.1 GB of a 32 B model's group and 6-8 s of save, migrate
+    and restore on the card machine, are bf16 leaves like the layers'), and
+    the prefill with the restored layers bit-identical to the prefill with
+    the saved ones (K1 bf16 once an attention layer in each).  Returns the
+    launches, summed."""
+    cut, p = cut_depth(cfg, params, 1)
+    model = build_model(cut)
+    inputs = torch_inputs(arch_batch(cut, CARD_CPU_BATCH, ARCH_CARD_CPU_SEQ, seed=5), dev)
+    (logits, _), pre, _ = counted(lambda: model.forward(p, inputs))
+    rt = checkpoint_round_trip(p["groups"], cut.name, dev, os.path.join(work, cut.name))
+    (logits_b, _), pre_b, _ = counted(lambda: model.forward({**p, "groups": rt["back"]}, inputs))
+    for what, got in (("prefill", pre), ("prefill restored", pre_b)):
+        if got != exactly(got, flash_attention_bf16=attn_layers(cut)):
+            raise RuntimeError(f"{cut.name} checkpoint lifecycle {what}: launch counts {got}")
+    if not torch.equal(logits_b, logits):
+        raise RuntimeError(f"{cut.name}: the prefill from the restored params differs")
+    log(f"{tag} {cfg.name} cut to {cut.num_layers} layer(s), its layers: {describe_round_trip(rt, 'full')}, and "
+        f"the prefill's logits too; launches: save, migrate, restore none, each prefill K1 bf16 "
+        f"{attn_layers(cut)}")
     return {k: pre[k] + pre_b[k] for k in pre}
 
 
 def gib(n: float) -> str:
     return f"{n / 2 ** 30:.2f} GiB"
+
+
+def draw_arch(cfg, full, dev, tag: str) -> dict:
+    """``cfg``'s params in bf16, drawn on the card from seed 0 by a
+    generator on the card, printed with their count, bytes, the draw's time
+    and the card's free and peak memory.  The count must equal
+    ``param_count``, the analytic count (a copy of the JAX package's),
+    where that count is exact: it leaves out the sLSTM blocks' recurrent
+    maps (and counts a second norm in every mLSTM and sLSTM block), and an
+    encoder-decoder's LayerNorm biases and encoder norm
+    (tests/test_torch_xlstm.py, tests/test_torch_encdec.py); there the two
+    are printed side by side.  ``full`` is the config whose depth ``cfg``
+    may cut."""
+    torch.cuda.reset_peak_memory_stats()
+    free0, card = torch.cuda.mem_get_info()
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    free1, _ = torch.cuda.mem_get_info()
+    peak_init = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    leaves = [x for _, x in flatten_with_paths(params)]
+    n = sum(x.numel() for x in leaves)
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    counted_n = param_count(cfg)
+    exact = not (cfg.is_encdec or "slstm" in cfg.block_pattern)
+    if n != counted_n and exact:
+        raise RuntimeError(f"{cfg.name}: {n} params, param_count says {counted_n}")
+    agrees = "param_count agrees" if n == counted_n else f"param_count says {counted_n}"
+    depth = (f"{cfg.num_layers} layers" if cfg.num_layers == full.num_layers else
+             f"{cfg.num_layers} of its {full.num_layers} layers (the {full.num_layers}-layer "
+             f"model's {param_count(full)} params do not fit the card in bf16)")
+    log(f"{tag} {cfg.name}: {n} params ({active_param_count(cfg)} active a token; {agrees}), "
+        f"{depth}, bf16 weights {nbytes} B, drawn on the card in {init_s:.2f} s; card {card} B, "
+        f"free {free0} B before the draw and {free1} B after; peak allocated during the draw "
+        f"{peak_init} B ({gib(peak_init)}, {100 * peak_init / card:.1f}% of the card)")
+    return params
+
+
+def log_arch2_serving(res, cfg, tag: str) -> None:
+    pb, ps = ARCH_PROMPT
+    b, s = ARCH_PREFILL_DEFAULT
+    card = torch.cuda.mem_get_info()[1]
+    log(f"{tag} {cfg.name} serving at {cfg.num_layers} layers: prefill {b} x {s} {inputs_word(cfg)} "
+        f"{res.prefill_s * 1e3:.2f} ms (warm; K1 bf16 {attn_layers(cfg)} launches), {res.busy}; "
+        f"greedy decode {pb} x {ps} {inputs_word(cfg)} + {ARCH_NEW}: "
+        f"{pb * ARCH_NEW / res.decode_s:.1f} new tok/s ({(ps + ARCH_NEW - 1) / res.decode_s:.1f} "
+        f"steps/s, no K1 launch); peak allocated while serving "
+        f"{torch.cuda.max_memory_allocated()} B "
+        f"({100 * torch.cuda.max_memory_allocated() / card:.1f}% of the card)")
+    torch.cuda.reset_peak_memory_stats()
+
+
+def log_full_sj(cfg, full, params, tag: str) -> None:
+    """S_j, the full-mode checkpoint bytes of the full-depth model (the
+    served layer groups' bytes extended by the groups left out), through
+    the feasibility gate."""
+    sj = ser.tree_bytes(params)
+    sj_full = sj
+    if full.num_layers != cfg.num_layers:
+        per_group = ser.tree_bytes(params["groups"]) // cfg.num_groups
+        sj_full = sj + (full.num_groups - cfg.num_groups) * per_group
+    v = feasibility.evaluate(sj_full, BANDWIDTH_BPS, WINDOW_S)
+    served = "" if sj == sj_full else f" (the {cfg.num_layers} layers served: {sj} B)"
+    log(f"{tag} {cfg.name} S_j at full depth (full mode): {sj_full} B{served}; gate at "
+        f"{BANDWIDTH_BPS:.0e} b/s in a {WINDOW_S:.0f} s window: class {int(v.workload_class)}, "
+        f"t_transfer {float(v.t_transfer_s):.2f} s, t_cost {float(v.t_cost_s):.2f} s, "
+        f"feasible {bool(v.feasible)}")
 
 
 def phase_archs2(dev) -> dict:
@@ -2691,52 +2913,11 @@ def phase_archs2(dev) -> dict:
             t_arch = time.perf_counter()
             full = get_config(arch)
             cfg = replace(full, num_layers=ARCH2_LAYERS.get(arch, full.num_layers))
-            torch.cuda.reset_peak_memory_stats()
-            free0, card = torch.cuda.mem_get_info()
-            t0 = time.perf_counter()
-            params = build_model(cfg).init(
-                device=dev, generator=torch.Generator(device=dev).manual_seed(0))
-            torch.cuda.synchronize()
-            init_s = time.perf_counter() - t0
-            free1, _ = torch.cuda.mem_get_info()
-            peak_init = torch.cuda.max_memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            leaves = [x for _, x in flatten_with_paths(params)]
-            n = sum(x.numel() for x in leaves)
-            nbytes = sum(x.numel() * x.element_size() for x in leaves)
-            if n != param_count(cfg):
-                raise RuntimeError(f"{arch}: {n} params, param_count says {param_count(cfg)}")
-            depth = (f"{cfg.num_layers} layers" if cfg.num_layers == full.num_layers else
-                     f"{cfg.num_layers} of its {full.num_layers} layers (the {full.num_layers}-layer "
-                     f"model's {param_count(full)} params do not fit the card in bf16)")
-            log(f"[archs2] {arch}: {n} params ({active_param_count(cfg)} active a token; param_count "
-                f"agrees), {depth}, bf16 weights {nbytes} B, drawn on the card in {init_s:.2f} s; "
-                f"card {card} B, free {free0} B before the draw and {free1} B after; peak allocated "
-                f"during the draw {peak_init} B ({gib(peak_init)}, {100 * peak_init / card:.1f}% of "
-                f"the card)")
-            del leaves
-
+            params = draw_arch(cfg, full, dev, "[archs2]")
             res = run_arch2_serving(cfg, params, dev)
             add(check_arch2_serving(res, cfg))
-            pb, ps = ARCH_PROMPT
-            b, s = ARCH_PREFILL_DEFAULT
-            sj = ser.tree_bytes(params)
-            per_group = ser.tree_bytes(params["groups"]) // cfg.num_groups
-            sj_full = sj + (full.num_groups - cfg.num_groups) * per_group
-            v = feasibility.evaluate(sj_full, BANDWIDTH_BPS, WINDOW_S)
-            served = "" if sj == sj_full else f" (the {cfg.num_layers} layers served: {sj} B)"
-            log(f"[archs2] {arch} serving at {cfg.num_layers} layers: prefill {b} x {s} {inputs_word(cfg)} "
-                f"{res.prefill_s * 1e3:.2f} ms (warm; K1 bf16 {cfg.num_layers} launches), {res.busy}; "
-                f"greedy decode {pb} x {ps} {inputs_word(cfg)} + {ARCH_NEW}: "
-                f"{pb * ARCH_NEW / res.decode_s:.1f} new tok/s ({(ps + ARCH_NEW - 1) / res.decode_s:.1f} "
-                f"steps/s, no K1 launch); peak allocated while serving "
-                f"{torch.cuda.max_memory_allocated()} B "
-                f"({100 * torch.cuda.max_memory_allocated() / card:.1f}% of the card)")
-            torch.cuda.reset_peak_memory_stats()
-            log(f"[archs2] {arch} S_j at full depth (full mode): {sj_full} B{served}; gate at "
-                f"{BANDWIDTH_BPS:.0e} b/s in a {WINDOW_S:.0f} s window: class {int(v.workload_class)}, "
-                f"t_transfer {float(v.t_transfer_s):.2f} s, t_cost {float(v.t_cost_s):.2f} s, "
-                f"feasible {bool(v.feasible)}")
+            log_arch2_serving(res, cfg, "[archs2]")
+            log_full_sj(cfg, full, params, "[archs2]")
 
             groups = cfg.num_groups if arch in ARCH2_F32_FULL_DEPTH else ARCH2_F32_GROUPS
             cut, p = cut_depth(cfg, params, min(groups, cfg.num_groups))
@@ -2757,16 +2938,356 @@ def phase_archs2(dev) -> dict:
             add(check_cut_decode(cut, p, dev, tag="[archs2]"))
             add(run_arch2_checkpoint(cut, p, dev, work))
             del p
-            torch.cuda.empty_cache()
-            left = torch.cuda.memory_allocated() - base
-            if left > ARCH2_LEAK_BYTES:
-                raise RuntimeError(f"{arch}: {left} B still allocated on the card after its model was "
-                                   f"freed")
-            log(f"[archs2] {arch}: {time.perf_counter() - t_arch:.1f} s in all; peak allocated after "
-                f"serving {torch.cuda.max_memory_allocated()} B; freed: {left} B allocated beyond the "
-                f"phase's start, {torch.cuda.mem_get_info()[0]} B free")
+            check_freed(arch, base, t_arch, "[archs2]")
     check_arch_flash(dev, torch.Generator().manual_seed(3), ARCHS2, "[archs2]")
     log(f"[archs2] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def check_freed(name: str, base: int, t_arch: float, tag: str) -> None:
+    """After a model is freed the card must hold no more than
+    ARCH2_LEAK_BYTES beyond ``base``, what it held before the draw."""
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - base
+    if left > ARCH2_LEAK_BYTES:
+        raise RuntimeError(f"{name}: {left} B still allocated on the card after its model was freed")
+    log(f"{tag} {name}: {time.perf_counter() - t_arch:.1f} s in all; peak allocated after serving "
+        f"{torch.cuda.max_memory_allocated()} B; freed: {left} B allocated beyond the phase's start, "
+        f"{torch.cuda.mem_get_info()[0]} B free")
+
+
+# ---------------------------------------------------------------------------
+# The last three architectures: jamba-v0.1-52b, xlstm-1.3b, whisper-tiny
+# ---------------------------------------------------------------------------
+
+
+def check_mamba_prefill_decode(cfg, params, dev, tag: str = "[archs3]") -> None:
+    """jamba's first Mamba mixer (group 0's b0), upcast to float32 at full
+    width: apply_mamba over 2 x MAMBA_SEQ tokens against a MAMBA_PREFILL
+    prefill (two 256-token chunks) whose state decode carries on
+    step by step, within DECODE_TOL of the largest |output|.  No kernel
+    runs (the scan is plain PyTorch, as in the JAX package)."""
+    p = {k: v[0].float() for k, v in params["groups"]["b0"]["mamba"].items()}
+    N = cfg.mamba_d_state
+    x = randn(torch.Generator().manual_seed(6), (CARD_CPU_BATCH, MAMBA_SEQ, cfg.d_model), dev)
+
+    def prefill_then_decode():
+        head, state = mamba_lib.apply_mamba(p, x[:, :MAMBA_PREFILL], d_state=N, return_state=True)
+        steps = [head]
+        for t in range(MAMBA_PREFILL, MAMBA_SEQ):
+            y, state = mamba_lib.apply_mamba_decode(p, x[:, t:t + 1], state, d_state=N)
+            steps.append(y)
+        return torch.cat(steps, dim=1)
+
+    with torch.inference_mode():
+        whole, c_whole, whole_s = counted(lambda: mamba_lib.apply_mamba(p, x, d_state=N))
+        got, c_split, split_s = counted(prefill_then_decode)
+    if c_whole != exactly(c_whole) or c_split != exactly(c_split):
+        raise RuntimeError(f"Mamba mixer launches {c_whole} / {c_split}, expected none")
+    err, top = max_diff(got, whole), float(whole.abs().max())
+    if not err <= DECODE_TOL * top:
+        raise RuntimeError(f"{cfg.name} Mamba float32: prefill {MAMBA_PREFILL} + decode vs the forward "
+                           f"over {MAMBA_SEQ} tokens: max abs err {err} beyond {DECODE_TOL} x {top}")
+    log(f"{tag} {cfg.name} Mamba mixer (group 0, b0) in float32 at full width: forward over "
+        f"{CARD_CPU_BATCH} x {MAMBA_SEQ} tokens (2 chunks of {MAMBA_SEQ // 2}) in {whole_s * 1e3:.1f} ms; "
+        f"a {MAMBA_PREFILL}-token prefill (2 chunks of 256) and {MAMBA_SEQ - MAMBA_PREFILL} decode "
+        f"steps from its conv and SSM state in {split_s * 1e3:.1f} ms, within {DECODE_TOL} x "
+        f"max|y| ({top:.4f}) of it (max abs err {err:.3e}, {100 * err / (DECODE_TOL * top):.1f}%); "
+        f"no kernel launch")
+
+
+def check_block_card_vs_cpu(cfg, params, i: int, dev, tag: str = "[archs3]") -> dict:
+    """Group 0's block b<i> alone (tfm.apply_block, bf16, full width) on
+    CARD_CPU_BATCH x ARCH2_CARD_CPU_SEQ seeded activations, on the card
+    against device="cpu": the output within CARD_CPU_BF16_TOL of the
+    largest |output| and the gradients of sum(output x a seeded cotangent)
+    (plus an MoE block's aux loss) for the input and every leaf, each within
+    CARD_CPU_BF16_TOL of its largest element.  An MoE block's CPU side is
+    routed as the card (expert_choice).  Returns the card's launches: an
+    attention block K1 and its backward once each in bf16."""
+    kind, blk = cfg.block_pattern[i], f"b{i}"
+    p = {k: v for k, v in tree_map(lambda x: x[0], params["groups"][blk]).items()}
+    gen = torch.Generator().manual_seed(10 + i)
+    shape = (CARD_CPU_BATCH, ARCH2_CARD_CPU_SEQ, cfg.d_model)
+    x, cot = randn(gen, shape, "cpu").to(torch.bfloat16), randn(gen, shape, "cpu")
+    positions = torch.arange(shape[1]).expand(shape[:2])
+
+    def run(p, x, cot, positions):
+        with torch.enable_grad():
+            live = tree_map(lambda t: t.detach().requires_grad_(True), p)
+            xi = x.detach().requires_grad_(True)
+            out, aux = tfm.apply_block(live, xi, kind, cfg, positions)
+            loss = (out.float() * cot).sum() + (aux if aux is not None else 0.0)
+            paths, leaves = zip(*flatten_with_paths(live))
+            grads = torch.autograd.grad(loss, (xi, *leaves))
+        return out.detach(), dict(zip((("x",), *paths), grads))
+
+    routes = []
+    with expert_choice(routes) if "moe" in p else contextlib.nullcontext():
+        (out, g_card), counts, card_s = counted(lambda: run(p, x.to(dev), cot.to(dev),
+                                                            positions.to(dev)))
+    k1 = 1 if kind.startswith("attn") else 0
+    if counts != exactly(counts, flash_attention_bf16=k1, flash_attention_bwd_bf16=k1):
+        raise RuntimeError(f"{cfg.name} {blk} ({kind}) card step launches {counts}")
+    t0 = time.perf_counter()
+    force = routes[0] if routes else None
+    with expert_choice([], force=force) if force is not None else contextlib.nullcontext():
+        want, g_cpu = run(tree_map(lambda t: t.cpu(), p), x, cot, positions)
+    cpu_s = time.perf_counter() - t0
+    shares = {"output": leaf_share(out, want.float(), CARD_CPU_BF16_TOL)}
+    shares.update({"/".join(path): leaf_share(g, g_cpu[path].float(), CARD_CPU_BF16_TOL)
+                   for path, g in g_card.items()})
+    worst = max(shares, key=shares.get)
+    if not shares[worst] <= 1.0:
+        raise RuntimeError(f"{cfg.name} {blk} ({kind}) on the card vs the CPU: {worst} "
+                           f"{100 * shares[worst]:.1f}% of {CARD_CPU_BF16_TOL} x its max")
+    routed = ", the CPU routed as the card" if force is not None else ""
+    log(f"{tag} {cfg.name} block {blk} ({kind}{' + MoE' if 'moe' in p else ''}) at full width in bf16, "
+        f"{shape[0]} x {shape[1]} activations, card ({card_s:.2f} s) vs device='cpu' ({cpu_s:.1f} s"
+        f"{routed}): output {100 * shares['output']:.1f}% of {CARD_CPU_BF16_TOL} x max|output|, "
+        f"{len(g_card)} gradients (the input and every leaf) each within it, at most "
+        f"{100 * shares[worst]:.1f}% ({worst}); launches {counts}")
+    return counts
+
+
+def run_jamba(dev, work, base: int) -> dict:
+    """jamba-v0.1-52b at 2 of its 4 groups in bf16: (a) served (prefill 2 x
+    512, greedy decode 2 x 32 + 16), S_j of the full depth through the gate;
+    (b) its first Mamba mixer's prefill and decode in float32, and blocks
+    b0, b1, b4 on the card against device="cpu"; (c) a full checkpoint
+    lifecycle of group 0's b0 / b1 subtree (bf16 leaves beside the float32
+    A_log and D), b1's MoE experts left out (JAMBA_CKPT_DROP).  Returns the
+    launches, summed."""
+    t_arch = time.perf_counter()
+    full = get_config(ARCHS3[0])
+    cfg = replace(full, num_layers=ARCH3_LAYERS[ARCHS3[0]])
+    params = draw_arch(cfg, full, dev, "[archs3]")
+    res = run_arch2_serving(cfg, params, dev)
+    total = check_arch2_serving(res, cfg)
+    log_arch2_serving(res, cfg, "[archs3]")
+    log_full_sj(cfg, full, params, "[archs3]")
+    del res
+    check_mamba_prefill_decode(cfg, params, dev)
+    for i in JAMBA_BLOCKS:
+        counts = check_block_card_vs_cpu(cfg, params, i, dev)
+        total = {k: total[k] + counts[k] for k in total}
+    sub = tree_map(lambda x: x[0], {blk: params["groups"][blk] for blk in ("b0", "b1")})
+    sub["b1"]["moe"] = {k: v for k, v in sub["b1"]["moe"].items() if k not in JAMBA_CKPT_DROP}
+    f32 = sorted("/".join(path) for path, x in flatten_with_paths(sub) if x.dtype == torch.float32)
+    rt = checkpoint_round_trip(sub, f"{cfg.name}-group0-b0b1", dev, os.path.join(work, "jamba"))
+    log(f"[archs3] {cfg.name} group 0's b0 / b1 subtree (bf16, and float32 {', '.join(f32)}): "
+        f"{describe_round_trip(rt, 'full')}; launches none")
+    del sub, rt, params
+    check_freed(cfg.name, base, t_arch, "[archs3]")
+    return total
+
+
+def time_slstm(cfg, params, dev) -> float:
+    """The first sLSTM layer's sequential scan over CARD_CPU_BATCH x
+    SLSTM_TIME_SEQ tokens on the card, warm: wall ms per token.  The loop
+    launches ~25 small kernels a token and waits on the host, so its wall
+    is the number (CUDA events paced ahead of it cannot be: the host
+    enqueues for longer than any spin)."""
+    i = cfg.block_pattern.index("slstm")
+    p = tree_map(lambda x: x[0], params["groups"][f"b{i}"]["slstm"])
+    n = SLSTM_TIME_SEQ
+    x = randn(torch.Generator().manual_seed(7), (CARD_CPU_BATCH, n, cfg.d_model), dev).to(
+        torch.bfloat16)
+    with torch.inference_mode():
+        scan = lambda: xlstm_lib._slstm_scan(p, x, cfg.num_heads)  # noqa: E731
+        counted(scan)
+        _, _, wall = counted(scan)
+    return 1e3 * wall / n
+
+
+def run_xlstm(dev, work, base: int) -> dict:
+    """xlstm-1.3b whole in bf16: (a) served (prefill 2 x 512, greedy decode
+    2 x 32 + 16), S_j through the gate, the sLSTM loop's time per token;
+    (b) a float32 copy decodes the served inputs, held to its prefill; (c)
+    one layer group against device="cpu" (check_xlstm_card_vs_cpu); (d)
+    that group's training lifecycle through Trainer, migrated against
+    unmigrated, and an int8 save and restore of its sLSTM block's params.
+    Returns the launches, summed (no K1: xlstm has no attention;
+    K2 and K3 in (d))."""
+    t_arch = time.perf_counter()
+    cfg = get_config(ARCHS3[1])
+    params = draw_arch(cfg, cfg, dev, "[archs3]")
+    res = run_arch2_serving(cfg, params, dev)
+    total = check_arch2_serving(res, cfg)
+    log_arch2_serving(res, cfg, "[archs3]")
+    log_full_sj(cfg, cfg, params, "[archs3]")
+    log(f"[archs3] {cfg.name} sLSTM scan (one layer, {CARD_CPU_BATCH} x {SLSTM_TIME_SEQ} tokens, bf16, "
+        f"warm): {time_slstm(cfg, params, dev):.3f} ms a token wall-clock "
+        f"({cfg.num_groups * cfg.block_pattern.count('slstm')} such layers)")
+    for counts in (check_f32_decode(cfg, params, res, tag="[archs3]"),
+                   check_xlstm_card_vs_cpu(cfg, params, dev)):
+        total = {k: total[k] + counts[k] for k in total}
+    del res, params
+    torch.cuda.empty_cache()
+    cut = replace(cfg, num_layers=len(cfg.block_pattern))
+    d = os.path.join(work, "xlstm")
+    life = run_train_lifecycle(cut, d, mode="full", grad_compress=False, device=dev,
+                               batch=XLSTM_LIFE_BATCH, seq=XLSTM_LIFE_SEQ, steps=XLSTM_LIFE_STEPS,
+                               preempt=XLSTM_LIFE_PREEMPT, save_every=XLSTM_LIFE_SAVE_EVERY)
+    counts = check_train_lifecycle(life, tag="[archs3]")
+    total = {k: total[k] + counts[k] for k in total}
+    blk = f"b{cfg.block_pattern.index('slstm')}"
+    sub = group_params(life.state_a["params"], [blk])
+    rt = checkpoint_round_trip(sub, f"{cut.name}-{blk}", dev, os.path.join(d, "int8"), mode="int8")
+    log(f"[archs3] {cut.name} {blk} (sLSTM) params at step {life.preempt}: "
+        f"{describe_round_trip(rt, 'int8')}; launches {rt['launches']}, as derived")
+    total = {k: total[k] + rt["launches"][k] for k in total}
+    del life, sub, rt
+    shutil.rmtree(d)
+    check_freed(cfg.name, base, t_arch, "[archs3]")
+    return total
+
+
+def check_xlstm_card_vs_cpu(cfg, params, dev, tag: str = "[archs3]") -> dict:
+    """xlstm cut to one layer group (7 mLSTM + 1 sLSTM) at full width on 2 x
+    ARCH2_CARD_CPU_SEQ tokens, card against device="cpu".  In bf16 the
+    forward's logits land 1.02x CARD_CPU_BF16_TOL x max|logit| apart (the
+    first run on the H100): the mLSTM's h = num / max(|den|, e^-m) and the
+    sLSTM's 32 steps, each rounding h to bf16, carry the two sides'
+    different bf16 roundings through eight blocks, as a full depth of
+    attention layers does (check_arch_decode).  So the bf16 forward is
+    reported, each side against the float32 forward on the CPU, and the
+    one-group forward and a train step are held in float32: the logits
+    within MODEL_TOL, the step by check_card_vs_cpu.  No kernel runs.
+    Returns the launches."""
+    cut, p = cut_depth(cfg, params, 1)
+    seq = ARCH2_CARD_CPU_SEQ
+    batch = arch_batch(cut, CARD_CPU_BATCH, seq, seed=0)
+    inputs = torch_inputs(batch)
+    (card, _), counts, _ = counted(lambda: build_model(cut).forward(p, torch_inputs(batch, dev)))
+    host = tree_map(lambda x: x.cpu(), p)
+    plain, _ = build_model(cut).forward(host, inputs)
+    cut32 = replace(cut, dtype="float32")
+    p32 = tree_map(lambda x: x.float(), host)
+    model32 = build_model(cut32)
+    exact, _ = model32.forward(p32, inputs)
+    (card32, _), counts32, _ = counted(lambda: model32.forward(
+        tree_map(lambda x: x.to(dev), p32), torch_inputs(batch, dev)))
+    for c in (counts, counts32):
+        if c != exactly(c):
+            raise RuntimeError(f"{cut.name} forward launches {c}, expected none")
+    err32 = max_diff(card32, exact)
+    if not torch.allclose(card32.cpu(), exact, atol=MODEL_TOL, rtol=MODEL_TOL):
+        raise RuntimeError(f"{cut.name} float32 forward on the card vs the CPU: max abs err {err32} "
+                           f"beyond {MODEL_TOL}")
+    top = float(exact.abs().max())
+    log(f"{tag} {cfg.name} cut to {cut.num_layers} layers at full width, {CARD_CPU_BATCH} x {seq} "
+        f"tokens: float32 forward on the card within {MODEL_TOL} of device='cpu' (max abs err "
+        f"{err32:.3e}, max|logit| {top:.3f}); bf16 forward, card vs CPU {max_diff(card, plain):.3e} "
+        f"({100 * max_diff(card, plain) / (CARD_CPU_BF16_TOL * float(plain.float().abs().max())):.1f}% "
+        f"of {CARD_CPU_BF16_TOL} x max|logit|, not held), from the float32 forward: card "
+        f"{max_diff(card.cpu(), exact):.3e}, plain {max_diff(plain, exact):.3e}; launches none")
+    check_card_vs_cpu(cut32, p32, dev, seq=seq, steps=1, tag=f"{tag} float32,")
+    return counts
+
+
+class EncDecServing(DecodeLogits):
+    """An encoder-decoder Model as greedy_decode drives it: its cache comes
+    from encdec_init_cache over ``frames`` (the encoder, then each decoder
+    layer's cross K / V), and each step's logits are kept."""
+
+    def __init__(self, model, params, frames):
+        super().__init__(model)
+        self.params, self.frames = params, frames
+
+    def init_cache(self, batch: int, max_len: int, device=None):
+        with torch.inference_mode():
+            return encdec_lib.encdec_init_cache(self.params, self.frames, self.model.cfg, batch,
+                                                max_len)
+
+
+def run_whisper(dev, work, base: int) -> dict:
+    """whisper-tiny whole in bf16: (a) encode 2 x 1,500 frames (K1 with a
+    full mask, a ragged last tile), then encdec_init_cache and greedy
+    decode 2 x 32 + 16; (b) a float32 copy's decode of the same tokens held
+    to its decode_train; (c) forward and a train step on the card against
+    device="cpu" (K1's backward at the encoder's shape); (d) full and int8
+    checkpoint lifecycles.  Returns the launches, summed."""
+    t_arch = time.perf_counter()
+    cfg = get_config(ARCHS3[2])
+    params = draw_arch(cfg, cfg, dev, "[archs3]")
+    model = build_model(cfg)
+    pb, ps = ARCH_PROMPT
+    inputs = torch_inputs(arch_batch(cfg, pb, ps, seed=2), dev)
+    frames, prompt = inputs["frames"], inputs["tokens"]
+    with torch.inference_mode():
+        enc, c_enc, _ = counted(lambda: encdec_lib.encode(params, frames, cfg))
+        _, c_enc2, enc_s = counted(lambda: encdec_lib.encode(params, frames, cfg))
+    rec = EncDecServing(model, params, frames)
+    toks, c_dec, dec_s = counted(lambda: greedy_decode(rec, params, prompt, ARCH_NEW, ps + ARCH_NEW))
+    for what, got, k1 in (("encode", c_enc, cfg.encoder_layers), ("encode again", c_enc2, cfg.encoder_layers),
+                          ("decode", c_dec, cfg.encoder_layers)):
+        if got != exactly(got, flash_attention_bf16=k1):
+            raise RuntimeError(f"{cfg.name} {what}: launch counts {got}, expected K1 bf16 {k1} only")
+    if enc.shape != frames.shape or not bool(torch.isfinite(enc).all()):
+        raise RuntimeError(f"{cfg.name} encoder output {tuple(enc.shape)} or not finite")
+    new = toks[:, ps:]
+    if toks.shape != (pb, ps + ARCH_NEW) or not torch.equal(toks[:, :ps], prompt) or \
+            int(new.min()) < 0 or int(new.max()) >= cfg.vocab_size:
+        raise RuntimeError(f"{cfg.name} decode: tokens {tuple(toks.shape)}, prompt lost or out of the vocabulary")
+    total = {k: c_enc[k] + c_enc2[k] + c_dec[k] for k in c_enc}
+    log(f"[archs3] {cfg.name} serving: encode {pb} x {cfg.encoder_seq} frames {enc_s * 1e3:.2f} ms "
+        f"(warm; K1 bf16 {cfg.encoder_layers} launches, full mask); encdec_init_cache and greedy decode "
+        f"{pb} x {ps} + {ARCH_NEW} tokens in {dec_s:.3f} s ({pb * ARCH_NEW / dec_s:.1f} new tok/s, "
+        f"{(ps + ARCH_NEW - 1) / dec_s:.1f} steps/s; K1 only in the cache's encode)")
+    log_full_sj(cfg, cfg, params, "[archs3]")
+
+    # (b) the float32 copy: step-by-step decode of the served tokens but the
+    # last, against decode_train of the same tokens
+    cfg32 = replace(cfg, dtype="float32")
+    p32 = tree_map(lambda x: x.float(), params)
+    model32 = build_model(cfg32)
+    fed = toks[:, :-1]
+    rec32 = EncDecServing(model32, p32, frames)
+    _, dec32, dec32_s = counted(lambda: greedy_decode(rec32, p32, fed, 1, fed.shape[1] + 1))
+    (want, _), pre32, _ = counted(lambda: model32.forward(p32, {"frames": frames, "tokens": fed}))
+    if dec32 != exactly(dec32, flash_attention=cfg.encoder_layers) or \
+            pre32 != exactly(pre32, flash_attention=attn_layers(cfg)):
+        raise RuntimeError(f"{cfg.name} float32 decode / forward launches {dec32} / {pre32}")
+    got = rec32.logits()
+    err = max_diff(got, want)
+    if not torch.allclose(got, want, atol=DECODE_TOL, rtol=DECODE_TOL):
+        raise RuntimeError(f"{cfg.name} float32 decode vs decode_train: max abs err {err} beyond "
+                           f"{DECODE_TOL}")
+    log(f"[archs3] {cfg.name} float32 copy: decode of {pb} x {fed.shape[1]} tokens (the served ones) "
+        f"in {dec32_s:.1f} s, every step within {DECODE_TOL} of decode_train of the same tokens "
+        f"(max abs err {err:.3e}, max|logit| {float(want.abs().max()):.3f}); launches {pre32}")
+    for counts in (dec32, pre32):
+        total = {k: total[k] + counts[k] for k in total}
+    del p32, rec32, want, got
+
+    counts = check_arch_card_vs_cpu(cfg, params, dev, tag="[archs3]", seq=ARCH_PROMPT[1])
+    total = {k: total[k] + counts[k] for k in total}
+    for mode in ("full", "int8"):
+        rt = checkpoint_round_trip(params, cfg.name, dev, os.path.join(work, f"whisper-{mode}"), mode=mode)
+        log(f"[archs3] {cfg.name}: {describe_round_trip(rt, mode)}; launches {rt['launches']}, as derived")
+        total = {k: total[k] + rt["launches"][k] for k in total}
+    del params, rt
+    check_freed(cfg.name, base, t_arch, "[archs3]")
+    return total
+
+
+def phase_archs3(dev) -> dict:
+    """jamba-v0.1-52b (16 of 32 layers), xlstm-1.3b and whisper-tiny in
+    bf16 at full width, each drawn once on the card from seed 0 and freed
+    before the next (run_jamba, run_xlstm, run_whisper); then K1 and its
+    backward at jamba's and whisper's layer shapes.  Returns the launches
+    of the counted runs, summed."""
+    t_phase = time.perf_counter()
+    total = {}
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_archs3_") as work:
+        for run in (run_jamba, run_xlstm, run_whisper):
+            for k, n in run(dev, work, base).items():
+                total[k] = total.get(k, 0) + n
+    check_arch_flash(dev, torch.Generator().manual_seed(3), ARCHS3, "[archs3]")
+    log(f"[archs3] phase wall {time.perf_counter() - t_phase:.1f} s")
     return total
 
 
@@ -2863,6 +3384,11 @@ def main() -> int:
         launches[name] += n
     log(f"[archs2] launches of the architectures' runs {archs2}; all counted paths {launches}")
     stamp("archs and archs2")
+    archs3 = phase_archs3(dev)
+    for name, n in archs3.items():
+        launches[name] += n
+    log(f"[archs3] launches of the architectures' runs {archs3}; all counted paths {launches}")
+    stamp("archs3")
 
     rows = []
     for name, st in stats.items():

@@ -340,8 +340,10 @@ def run_cells(cells: Sequence[tuple], *, workers: Optional[int] = None,
     (``None`` = the card) and merge in submission order.  ``workers=1``
     (or a single cell) runs inline — no pool, no pickling;
     ``workers=None`` sizes the pool to ``min(len(cells), cpu_count)``.
-    On the card the pool spawns its workers: a forked child cannot use
-    CUDA once the parent has initialised it."""
+    The pool spawns its workers: a forked child cannot use CUDA once the
+    parent has initialised it, and a fork of a process whose threads
+    (torch's, or JAX's beside it in the tests) may hold a lock can
+    deadlock the child."""
     device = resolve(device)
     t0 = time.perf_counter()
     if workers is None:
@@ -350,8 +352,7 @@ def run_cells(cells: Sequence[tuple], *, workers: Optional[int] = None,
     if workers == 1:
         results = [_run_cell(c, device) for c in cells]
     else:
-        ctx = (multiprocessing.get_context("spawn") if device.type == "cuda"
-               else None)
+        ctx = multiprocessing.get_context("spawn")
         with ProcessPoolExecutor(max_workers=workers, mp_context=ctx) as ex:
             # map() yields in submission order — completion order never
             # leaks into the merge

@@ -2,9 +2,9 @@
 KV-cache decode path (port of ``repro/models/attention.py``).
 
 Train / prefill attention goes through ``kernels.ops.flash_attention``
-(the hand-written kernel on the card).  Decode attention is the plain
-quadratic ``attend_ref``, as in the JAX package, where it is no Pallas
-kernel either.
+(the hand-written kernel on the card).  Decode attention and the
+encoder-decoder's cross-attention are the plain quadratic ``attend_ref``,
+as in the JAX package, where they are no Pallas kernel either.
 """
 from __future__ import annotations
 
@@ -132,6 +132,32 @@ def apply_attention(
         mask_kind=mask_kind, window=window, attn_softcap=attn_softcap,
     )
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def apply_cross_attention(p: dict, x: torch.Tensor, kv) -> torch.Tensor:
+    """Cross-attention of the decoder stream x (b, s, d) over the encoder's
+    output: ``kv`` is either the precomputed (k, v) pair, each (b, t, nkv,
+    hd) (``cross_kv``, the decode cache), or the raw (b, t, d) encoder
+    output.  Every query sees every key: the plain ``attend_ref`` with a
+    full mask, as in the JAX package, where it is no Pallas kernel."""
+    if isinstance(kv, tuple):
+        k, v = kv
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+        if "bq" in p:
+            q = q + p["bq"]
+    else:
+        q, k, v = _project_qkv(p, x, kv, qk_norm=False)
+    out = attend_ref(q, k, v, mask_kind="full")
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def cross_kv(p: dict, enc_out: torch.Tensor):
+    """(k, v), each (b, t, nkv, hd), of the encoder output (b, t, d)."""
+    k = torch.einsum("btd,dhk->bthk", enc_out, p["wk"])
+    v = torch.einsum("btd,dhk->bthk", enc_out, p["wv"])
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    return k, v
 
 
 # ---------------------------------------------------------------------------

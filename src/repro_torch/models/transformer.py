@@ -1,18 +1,20 @@
 """Decoder-only LM assembly (port of ``repro/models/transformer.py``).
 
-The ported blocks are ``attn`` (causal) and ``attn_local`` (sliding
-window), each followed by a dense MLP or, at the positions ``cfg.moe``
-and ``cfg.moe_pattern`` pick, an MoE MLP whose aux losses the forward
-sums.  Inputs are token ids or precomputed embeddings (``batch["embeds"]``,
-qwen2-vl's stubbed vision frontend), and positions (b, s) or, for M-RoPE,
-(b, s, 3) t / h / w streams.  Mamba and xLSTM blocks, encoder-decoder and
-learned positions are not ported yet (``check_ported`` raises).  The layer stack is
-``num_groups`` repetitions of ``cfg.block_pattern`` with group params
-stacked on a leading dim, as in the JAX package, so the param tree and its
-checkpoint paths match; the JAX ``lax.scan`` over groups is a Python loop,
-and gradients reach the stacked leaves through the per-group indexing.
-Rematerialization (``remat_policy``) wraps each group as ``_remat`` does
-in the JAX package.
+The blocks are ``attn`` (causal), ``attn_local`` (sliding window) and
+``mamba`` (``models/mamba.py``), each followed by a dense MLP or, at the
+positions ``cfg.moe`` and ``cfg.moe_pattern`` pick, an MoE MLP whose aux
+losses the forward sums; and the self-contained ``mlstm`` and ``slstm``
+blocks (``models/xlstm.py``: a norm and the mixer, no MLP after it).
+Inputs are token ids or precomputed embeddings (``batch["embeds"]``,
+qwen2-vl's stubbed vision frontend), positions (b, s) or, for M-RoPE,
+(b, s, 3) t / h / w streams, and learned absolute positions where the
+config has them.  The layer stack is ``num_groups`` repetitions of
+``cfg.block_pattern`` with group params stacked on a leading dim, as in
+the JAX package, so the param tree and its checkpoint paths match; the JAX
+``lax.scan`` over groups is a Python loop, and gradients reach the stacked
+leaves through the per-group indexing.  Rematerialization
+(``remat_policy``) wraps each group as ``_remat`` does in the JAX package.
+The encoder-decoder (whisper) is ``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -25,7 +27,9 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import flatten_with_paths, tree_map
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import (
     apply_embed,
     apply_mlp,
@@ -76,21 +80,6 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-ATTN_KINDS = ("attn", "attn_local")
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise for any block or input the port does not have yet."""
-    for kind in cfg.block_pattern:
-        if kind not in ATTN_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: block {kind!r} is not ported yet (ROADMAP Queue 1, item 10)")
-    if cfg.is_encdec or cfg.learned_pos:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder / learned positions are not ported yet "
-            "(ROADMAP Queue 1, item 10)")
-
-
 def _is_moe_pos(cfg: ModelConfig, i: int) -> bool:
     if not cfg.moe:
         return False
@@ -115,17 +104,30 @@ def _mixer_kwargs(cfg: ModelConfig, kind: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def init_block(gen, cfg: ModelConfig, moe_here: bool, device) -> dict:
+def init_block(gen, cfg: ModelConfig, kind: str, moe_here: bool, device) -> dict:
     dt = _dtype(cfg)
-    p = {
-        "norm1": init_norm(cfg.d_model, cfg.norm_type, dt, device),
-        "attn": attn_lib.init_attention(
+    p = {"norm1": init_norm(cfg.d_model, cfg.norm_type, dt, device)}
+    if kind.startswith("attn"):
+        p["attn"] = attn_lib.init_attention(
             gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
             qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
             num_layers=cfg.num_layers, dtype=dt, device=device,
-        ),
-        "norm2": init_norm(cfg.d_model, cfg.norm_type, dt, device),
-    }
+        )
+    elif kind == "mamba":
+        p["mamba"] = mamba_lib.init_mamba(
+            gen, cfg.d_model, expand=cfg.mamba_expand, d_state=cfg.mamba_d_state,
+            d_conv=cfg.mamba_d_conv, num_layers=cfg.num_layers, dtype=dt, device=device)
+    elif kind == "mlstm":
+        p["mlstm"] = xlstm_lib.init_mlstm(gen, cfg.d_model, cfg.num_heads, cfg.num_layers,
+                                          dt, device)
+        return p  # self-contained block
+    elif kind == "slstm":
+        p["slstm"] = xlstm_lib.init_slstm(gen, cfg.d_model, cfg.num_heads, cfg.num_layers,
+                                          dt, device)
+        return p
+    else:
+        raise ValueError(kind)
+    p["norm2"] = init_norm(cfg.d_model, cfg.norm_type, dt, device)
     if moe_here:
         p["moe"] = moe_lib.init_moe(gen, cfg.d_model, cfg.expert_d_ff, cfg.num_experts,
                                     cfg.num_layers, dt, device)
@@ -144,21 +146,49 @@ def _apply_ffn(p: dict, h, cfg: ModelConfig):
 def apply_block(p: dict, x, kind: str, cfg: ModelConfig, positions):
     """Full-sequence block.  Returns (x, aux_loss or None)."""
     h = apply_norm(p["norm1"], x, cfg.norm_type)
-    x = x + attn_lib.apply_attention(p["attn"], h, positions=positions,
-                                     **_mixer_kwargs(cfg, kind))
+    if kind.startswith("attn"):
+        mix = attn_lib.apply_attention(p["attn"], h, positions=positions,
+                                       **_mixer_kwargs(cfg, kind))
+    elif kind == "mamba":
+        mix = mamba_lib.apply_mamba(p["mamba"], h, d_state=cfg.mamba_d_state)
+    elif kind == "mlstm":
+        return x + xlstm_lib.apply_mlstm(p["mlstm"], h, cfg.num_heads), None
+    elif kind == "slstm":
+        return x + xlstm_lib.apply_slstm(p["slstm"], h, cfg.num_heads), None
+    else:
+        raise ValueError(kind)
+    x = x + mix
     h = apply_norm(p["norm2"], x, cfg.norm_type)
     y, aux = _apply_ffn(p, h, cfg)
     return x + y, aux
 
 
 def apply_block_decode(p, x, kind: str, cfg: ModelConfig, positions, index: int, cache):
+    """One-token block step.  ``cache`` is the block's slice of the decode
+    cache, updated in place: an attention layer writes its new key and
+    value, a recurrent layer (Mamba, mLSTM, sLSTM) overwrites its state."""
     h = apply_norm(p["norm1"], x, cfg.norm_type)
-    mix, cache = attn_lib.apply_attention_decode(
-        p["attn"], h, cache, index, positions=positions, **_mixer_kwargs(cfg, kind))
+    if kind.startswith("attn"):
+        mix, _ = attn_lib.apply_attention_decode(
+            p["attn"], h, cache, index, positions=positions, **_mixer_kwargs(cfg, kind))
+        state = None
+    elif kind == "mamba":
+        mix, state = mamba_lib.apply_mamba_decode(p["mamba"], h, cache, d_state=cfg.mamba_d_state)
+    elif kind == "mlstm":
+        mix, state = xlstm_lib.apply_mlstm(p["mlstm"], h, cfg.num_heads, state=cache, decode=True)
+    elif kind == "slstm":
+        mix, state = xlstm_lib.apply_slstm(p["slstm"], h, cfg.num_heads, state=cache, decode=True)
+    else:
+        raise ValueError(kind)
+    if state is not None:
+        for name, t in state.items():
+            cache[name].copy_(t)
     x = x + mix
+    if "norm2" not in p:  # mLSTM / sLSTM: self-contained
+        return x
     h = apply_norm(p["norm2"], x, cfg.norm_type)
     y, _ = _apply_ffn(p, h, cfg)
-    return x + y, cache
+    return x + y
 
 
 # ---------------------------------------------------------------------------
@@ -181,43 +211,73 @@ def _unembed_table(params, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def _init_groups(gen, cfg: ModelConfig, device) -> dict:
-    """The stacked layer groups, drawn group by group in the generator's
-    order and written into their slot of leaves allocated once, shaped
-    (num_groups, ...): the peak is the model plus one group's tree, not two
-    copies of the stack (65-70 GB each for the 32 B models)."""
-    stacked = None
-    for g in range(cfg.num_groups):
-        tree = {f"b{i}": init_block(gen, cfg, _is_moe_pos(cfg, i), device)
-                for i in range(len(cfg.block_pattern))}
-        if stacked is None:
-            stacked = tree_map(lambda x: x.new_empty((cfg.num_groups, *x.shape)), tree)
-        for (_, dst), (_, src) in zip(flatten_with_paths(stacked), flatten_with_paths(tree)):
-            dst[g].copy_(src)
-        del tree
+def init_stacked(n: int, parts) -> dict:
+    """{key: stacked tree} of ``parts``, a list of (key, draw): for each of
+    ``n`` slots, every part's tree is drawn by ``draw()`` in turn (slot 0's
+    parts, then slot 1's: the generator's order) and written into its slot
+    of leaves allocated once, shaped (n, ...).  The peak is the stack plus
+    one part's tree, not two copies of the stack (65-70 GB each for the
+    32 B models) nor the stack and a whole slot (jamba's groups are 26 GB
+    each)."""
+    stacked = {}
+    for g in range(n):
+        for key, draw in parts:
+            tree = draw()
+            if key not in stacked:
+                stacked[key] = tree_map(lambda x: x.new_empty((n, *x.shape)), tree)
+            for (_, dst), (_, src) in zip(flatten_with_paths(stacked[key]),
+                                          flatten_with_paths(tree)):
+                dst[g].copy_(src)
+            del tree
     return stacked
 
 
+def _init_groups(gen, cfg: ModelConfig, device) -> dict:
+    """The stacked layer groups, block by block (init_stacked)."""
+    return init_stacked(cfg.num_groups, [
+        (f"b{i}", functools.partial(init_block, gen, cfg, kind, _is_moe_pos(cfg, i), device))
+        for i, kind in enumerate(cfg.block_pattern)])
+
+
 def init_lm(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
-    check_ported(cfg)
     dt = _dtype(cfg)
     params: Dict[str, Any] = {"embed": init_embed(gen, cfg.vocab_size, cfg.d_model, dt, device)}
     if not cfg.tie_embeddings:
         params["unembed"] = {"table": init_embed(gen, cfg.d_model, cfg.vocab_size, dt, device)["table"]}
+    if cfg.learned_pos:
+        params["pos_embed"] = init_pos_embed(gen, cfg, device)
     params["groups"] = _init_groups(gen, cfg, device)
     params["final_norm"] = init_norm(cfg.d_model, cfg.norm_type, dt, device)
     return params
 
 
+# rows of a learned absolute-position table (the JAX package's size)
+POS_TABLE_ROWS = 32768
+
+
+def init_pos_embed(gen, cfg: ModelConfig, device) -> dict:
+    return {"table": init_embed(gen, POS_TABLE_ROWS, cfg.d_model, _dtype(cfg), device)["table"]}
+
+
 def embed_inputs(params, cfg: ModelConfig, batch: dict):
     """(b, s, d) activations: ``batch["embeds"]`` in the model's type, else
-    the embedding of ``batch["tokens"]``."""
+    the embedding of ``batch["tokens"]``; with learned positions, plus the
+    table's rows at ``batch["positions"]`` (the t stream of (b, s, 3)
+    ones), by default at 0 .. s-1."""
     if "embeds" in batch:
         x = batch["embeds"].to(_dtype(cfg))
     else:
         x = apply_embed(params["embed"], batch["tokens"])
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+    if cfg.learned_pos:
+        pos = batch.get("positions")
+        if pos is None:
+            pos = torch.arange(x.shape[1], device=x.device)[None]
+        if pos.dim() == 3:
+            pos = pos[..., 0]
+        pe = params["pos_embed"]["table"][pos.long()]
+        x = x + pe.expand(x.shape).to(x.dtype)
     return x
 
 
@@ -227,7 +287,6 @@ def lm_forward(params: dict, batch: dict, cfg: ModelConfig, *,
     (b, s) or 'embeds' (b, s, d), and optionally 'positions' (b, s) or
     (b, s, 3); the attention mask runs on sequence indices whatever the
     positions."""
-    check_ported(cfg)
     x = embed_inputs(params, cfg, batch)
     b, s = x.shape[0], x.shape[1]
     positions = batch.get("positions")
@@ -265,25 +324,42 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig, *, remat_policy: str = 
 # ---------------------------------------------------------------------------
 
 
-def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    """{'b<i>': {'k': (shape, dtype), 'v': ...}} with the leading group dim.
-    A sliding-window block keeps min(max_len, sliding_window) slots (a ring
-    buffer, ``attention.apply_attention_decode``), any other max_len."""
-    check_ported(cfg)
-    specs = {}
-    for i, kind in enumerate(cfg.block_pattern):
+def _block_cache_spec(cfg: ModelConfig, kind: str, batch: int, max_len: int) -> dict:
+    """{name: (shape, dtype)} of one block's decode cache.  An attention
+    block keeps keys and values: a sliding-window block min(max_len,
+    sliding_window) slots (a ring buffer, ``attention.apply_attention_decode``),
+    any other max_len.  A recurrent block keeps its state."""
+    dt = _dtype(cfg)
+    if kind.startswith("attn"):
         cache_len = max_len
         if kind == "attn_local" and cfg.sliding_window:
             cache_len = min(max_len, cfg.sliding_window)
-        shape = (cfg.num_groups, batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
-        specs[f"b{i}"] = {"k": (shape, _dtype(cfg)), "v": (shape, _dtype(cfg))}
-    return specs
+        shape = (batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+        return {"k": (shape, dt), "v": (shape, dt)}
+    if kind == "mamba":
+        return mamba_lib.mamba_state_spec(batch, cfg.d_model, expand=cfg.mamba_expand,
+                                          d_state=cfg.mamba_d_state, d_conv=cfg.mamba_d_conv,
+                                          dtype=dt)
+    if kind == "mlstm":
+        return xlstm_lib.mlstm_state_spec(batch, cfg.d_model, cfg.num_heads)
+    if kind == "slstm":
+        return xlstm_lib.slstm_state_spec(batch, cfg.d_model)
+    raise ValueError(kind)
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
-    return {blk: {name: torch.zeros(shape, dtype=dt, device=device)
-                  for name, (shape, dt) in spec.items()}
-            for blk, spec in cache_specs(cfg, batch, max_len).items()}
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """{'b<i>': {name: (shape, dtype)}} with the leading group dim."""
+    return {f"b{i}": {name: ((cfg.num_groups, *shape), dt) for name, (shape, dt)
+                      in _block_cache_spec(cfg, kind, batch, max_len).items()}
+            for i, kind in enumerate(cfg.block_pattern)}
+
+
+def zeros_like_specs(specs: dict, device) -> dict:
+    """Zero tensors of a spec tree ({name: (shape, dtype)} leaves)."""
+    if isinstance(specs, dict):
+        return {k: zeros_like_specs(v, device) for k, v in specs.items()}
+    shape, dt = specs
+    return torch.zeros(shape, dtype=dt, device=device)
 
 
 def lm_decode_step(params: dict, cache: dict, batch: dict, cfg: ModelConfig):
@@ -292,22 +368,25 @@ def lm_decode_step(params: dict, cache: dict, batch: dict, cfg: ModelConfig):
     positions feed the rope (default: ``index``); the cache slot and the
     mask use ``index``.  Returns (logits (b, vocab), cache); the cache is
     updated in place."""
-    check_ported(cfg)
     index = int(batch["index"])
-    if "embeds" in batch:
-        x = embed_inputs(params, cfg, {"embeds": batch["embeds"]})
-    else:
-        x = embed_inputs(params, cfg, {"tokens": batch["token"][:, None]})
-    b = x.shape[0]
+    b = (batch["embeds"] if "embeds" in batch else batch["token"]).shape[0]
+    dev = params["embed"]["table"].device
     positions = batch.get("positions")
     if positions is None:
-        positions = torch.full((b, 1), index, device=x.device)
+        positions = torch.full((b, 1), index, device=dev)
+    if "embeds" in batch:
+        pos = {"positions": batch["positions"]} if "positions" in batch else {}
+        x = embed_inputs(params, cfg, {"embeds": batch["embeds"], **pos})
+    else:
+        # learned positions default to the token's index, as in the JAX package
+        pos = {"positions": positions} if "positions" in batch or cfg.learned_pos else {}
+        x = embed_inputs(params, cfg, {"tokens": batch["token"][:, None], **pos})
     for g in range(cfg.num_groups):
         gp = _index(params["groups"], g)
         for i, kind in enumerate(cfg.block_pattern):
             blk = f"b{i}"
             gc = {name: c[g] for name, c in cache[blk].items()}  # views into the stack
-            x, _ = apply_block_decode(gp[blk], x, kind, cfg, positions, index, gc)
+            x = apply_block_decode(gp[blk], x, kind, cfg, positions, index, gc)
     x = apply_norm(params["final_norm"], x, cfg.norm_type)
     logits = softcap(apply_unembed(_unembed_table(params, cfg), x), cfg.logit_softcap)
     return logits[:, 0], cache

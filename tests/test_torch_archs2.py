@@ -27,6 +27,18 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 from chip_smoke import mrope_positions  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two intra-op threads: the test workers share the machine's cores, and
+    with a thread per core each the many small ops here wait on one
+    another's pools (chip_smoke's [archs] rehearsal: 27 s alone, 272 s in
+    the 6-worker suite)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---------------------------------------------------------------------------
 # M-RoPE
 # ---------------------------------------------------------------------------
@@ -113,8 +125,8 @@ def _init_by_stacking(cfg, seed):
     params = {"embed": init_embed(gen, cfg.vocab_size, cfg.d_model, dt, "cpu")}
     if not cfg.tie_embeddings:
         params["unembed"] = {"table": init_embed(gen, cfg.d_model, cfg.vocab_size, dt, "cpu")["table"]}
-    trees = [{f"b{i}": tfm.init_block(gen, cfg, tfm._is_moe_pos(cfg, i), "cpu")
-              for i in range(len(cfg.block_pattern))} for _ in range(cfg.num_groups)]
+    trees = [{f"b{i}": tfm.init_block(gen, cfg, kind, tfm._is_moe_pos(cfg, i), "cpu")
+              for i, kind in enumerate(cfg.block_pattern)} for _ in range(cfg.num_groups)]
 
     def stack(ts):
         return {k: stack([t[k] for t in ts]) for k in ts[0]} if isinstance(ts[0], dict) \

@@ -28,6 +28,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 print(len(names), bad)
 assert not bad, bad
+assert {{"repro_torch.models.mamba", "repro_torch.models.xlstm", "repro_torch.models.encdec"}} <= set(names)
 """
 
 

@@ -47,9 +47,17 @@ def test_config_copy_matches_reference():
                 {f: getattr(j, f) for f in t.__dataclass_fields__}
 
 
-def test_registry_raises_for_unported_arch():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("jamba-v0.1-52b")
+def test_registry_builds_every_assigned_arch():
+    """All ten assigned architectures are in the port's registry, as in the
+    JAX package's, and each builds and draws its reduced model."""
+    from repro.configs.registry import ASSIGNED as JASSIGNED
+    from repro_torch.configs.registry import ASSIGNED
+
+    assert sorted(ASSIGNED) == sorted(JASSIGNED) and len(ASSIGNED) == 10
+    for arch in ASSIGNED:
+        cfg = get_config(arch)
+        params = build_model(cfg.reduced()).init(0, device="cpu")
+        assert flatten_with_paths(params), arch
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

@@ -68,6 +68,18 @@ LR = 3e-3
 B, S = 4, 32
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two intra-op threads: the test workers share the machine's cores, and
+    with a thread per core each the many small ops here wait on one
+    another's pools (chip_smoke's [archs] rehearsal: 27 s alone, 272 s in
+    the 6-worker suite)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def reduced():
     jcfg = jget_config("micro-lm").reduced()
