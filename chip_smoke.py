@@ -75,7 +75,7 @@ Phases, each of which raises on failure:
                 (forward and one train step, every gradient leaf held;
                 granite's CPU side routed as the card, its step also held
                 in float32) and its bf16 decode held to its prefill
-                (gemma2's 64 tokens past its window), granite-moe's
+                (gemma2's 64 tokens past a window cut to 256), granite-moe's
                 training lifecycle at 2 layers (migrated == unmigrated, one
                 int8 save and restore), and K1 and its backward in bf16 at
                 the three architectures' layer shapes, on inputs where
@@ -122,7 +122,22 @@ Phases, each of which raises on failure:
                 device="cpu", full and int8 checkpoint lifecycles; then K1
                 and its backward at jamba's and whisper's layer shapes, with
                 controls for a causal mask in place of the full one and for
-                the ragged tail's last key cut off; every run counted.
+                the ragged tail's last key cut off; every run counted;
+ 14. mesh   -- the sharding layer on a real 1 x 1 ('data', 'model') mesh
+                over a one-rank NCCL group (launch/mesh.make_local_mesh):
+                micro-lm trains unsharded to step 4, saves, migrate_job,
+                Trainer.restore(shardings=...) places the state on the
+                mesh and 4 more steps run on DTensors, bit-identical to an
+                unmigrated, unsharded run (every leaf and the final
+                checkpoint's bytes); qwen3-1.7b in bf16, its prefill of
+                2 x 512 under the baseline rules and a greedy decode under
+                decode-tp on DTensors, bit-identical to the same calls
+                unsharded; crosspod_allgather_mean_int8 on a (1, 1, 1) pod
+                mesh bit-identical to compress_roundtrip; sharded_batch;
+                and one dry-run cell (qwen3-1.7b decode_32k on the 16 x 16
+                fake world) in its own process: OK, its peak under the
+                card's memory, its roofline terms printed; every run
+                counted as derived.
 Then one JSON line of per-kernel numbers, and last the ok line.  Nothing
 runs on the CPU in place of the card: without a card the script exits 1.
 """
@@ -182,6 +197,14 @@ from repro_torch.optim.adamw import (  # noqa: E402
     AdamWConfig, apply_updates, global_norm, init_opt_state)
 from repro_torch.train.train_step import TrainStepConfig, make_train_step, value_and_grad  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh, make_mesh  # noqa: E402
+from repro_torch.optim.grad_compress import (  # noqa: E402
+    compress_roundtrip, crosspod_allgather_mean_int8)
+from repro_torch.parallel.compat import DTensor, distribute_tensor  # noqa: E402
+from repro_torch.parallel.sharding import (  # noqa: E402
+    force_mesh_axes, logical_spec, named_shardings, param_pspecs, placements, use_rules)
+from repro_torch.parallel.strategies import get_strategy  # noqa: E402
+from repro_torch.data.pipeline import make_global_batch  # noqa: E402
 
 # The slice: 8 requests of 512 prompt tokens (the synthetic LM stream), 64
 # new tokens each.
@@ -381,6 +404,12 @@ ARCH_CARD_CPU_SEQ = 64
 # step, or for gemma2 one sequence of this many tokens beyond its
 # 4,096-token window, so the local layer's ring-buffer cache wraps.
 ARCH_PAST_WINDOW = 64
+# The ring-buffer decode past the window is held at a window cut to
+# CUT_DECODE_WINDOW (the prefill cut the same way): a ring buffer wraps the
+# same way at any window, and gemma2's own 4,096-token window cost a
+# 4,160-step decode (21-28 s); K1 at the 4,096 window stays held by
+# check_arch_flash and the [archs] prefill.
+CUT_DECODE_WINDOW = 256
 # granite-moe's training lifecycle: full width, depth cut to 2 layers (the
 # training state, bf16 params and float32 master / m / v, ~2.2 GB); site A
 # trains to step 6 with a checkpoint every 3 steps and is preempted; site B
@@ -743,13 +772,17 @@ def run_train_lifecycle(cfg, workdir, *, mode, grad_compress, device, batch=TRAI
     kw = dict(mode=mode, grad_compress=grad_compress, batch=batch, seq=seq, device=dev)
     params_ref = None
     if reference:
-        # its save interval lies beyond the run: it saves once, at its end
-        # (the run only gives params_ref; a save at ``steps`` would be a
-        # second copy of that one)
+        # The run only gives params_ref, so it saves nothing: its save
+        # interval lies beyond the run, and its budget one step beyond it,
+        # so the save a run makes when it reaches its budget never comes
+        # (the learning-rate schedule still ends at ``steps``).
         ref_tr = make_trainer(cfg, os.path.join(workdir, "unmigrated"), steps=steps,
                               save_every=steps + 1, **kw)
-        segment("unmigrated", ref_tr.run, lambda: train_launches(
-            cfg, ref_tr, steps=steps, saves=saves_in(0, steps, steps + 1)))
+        ref_tr.cfg = replace(ref_tr.cfg, total_steps=steps + 1)
+        segment("unmigrated", lambda: ref_tr.run(max_steps=steps), lambda: train_launches(
+            cfg, ref_tr, steps=steps))
+        if ref_tr.step != steps or ref_tr.saves:
+            raise RuntimeError(f"unmigrated run: step {ref_tr.step}, saves {ref_tr.saves}")
         params_ref = ref_tr.params
     a = make_trainer(cfg, os.path.join(workdir, "siteA"), steps=steps, save_every=save_every,
                      preempt_at=preempt, **kw)
@@ -2321,6 +2354,8 @@ def check_cut_decode(cfg, params, dev, tag: str = "[archs]") -> dict:
     positions (arch_batch, decode_embeds)."""
     cut, p = cut_depth(cfg, params, 1)
     local = "attn_local" in cut.block_pattern
+    if local:
+        cut = replace(cut, sliding_window=min(cut.sliding_window, CUT_DECODE_WINDOW))
     b, n = (1, cut.sliding_window + ARCH_PAST_WINDOW) if local else (CARD_CPU_BATCH, ARCH_CARD_CPU_SEQ)
     inputs = torch_inputs(arch_batch(cut, b, n, seed=4), dev)
     model = build_model(cut)
@@ -3291,6 +3326,291 @@ def phase_archs3(dev) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# [mesh]: the sharding layer on a real 1 x 1 mesh (DTensors on the card)
+# ---------------------------------------------------------------------------
+
+MESH_STEPS, MESH_PREEMPT = 8, 4  # micro-lm: site A to step 4, site B (on the mesh) to 8
+MESH_ARCH = "qwen3-1.7b"
+MESH_PREFILL_BATCH, MESH_PREFILL_SEQ = 2, 512
+MESH_PROMPT, MESH_NEW = 16, 8  # greedy decode of 2 x 16 prompt tokens + 8 new
+MESH_DRYRUN = ("qwen3-1.7b", "decode_32k", "single")
+
+
+def shard_tree(tree, mesh, rules=None):
+    """Every leaf of a param tree placed on ``mesh`` by ``param_pspecs``
+    under ``rules`` (each rank keeps its shard of the same tensor)."""
+    specs = param_pspecs(tree, rules, mesh)
+
+    def place(x, spec):
+        if isinstance(x, dict):
+            return {k: place(x[k], spec[k]) for k in x}
+        return distribute_tensor(x, mesh, placements(spec, mesh), src_data_rank=None)
+
+    return place(tree, specs)
+
+
+def full_values(tree):
+    """A tree's leaves as whole tensors (DTensors gathered)."""
+    return tree_map(lambda x: x.full_tensor() if isinstance(x, DTensor) else x, tree)
+
+
+def same_leaves(what: str, got, want) -> int:
+    """Every leaf of ``got`` (gathered) bit-identical to ``want``'s; returns
+    the count of leaves."""
+    want_of = dict(flatten_with_paths(want))
+    n = 0
+    for path, x in flatten_with_paths(full_values(got)):
+        y = want_of[path]
+        if isinstance(x, torch.Tensor) and not torch.equal(x, torch.as_tensor(y).to(x.device)):
+            raise RuntimeError(f"{what}: leaf {'/'.join(path)} differs, max abs "
+                               f"{float((x.float() - y.float()).abs().max())}")
+        n += 1
+    return n
+
+
+def run_mesh_lifecycle(mesh, dev, work) -> dict:
+    """micro-lm at full width: site A trains unsharded to step MESH_PREEMPT
+    and is preempted (a full save), migrate_job, then site B restores onto
+    the 1 x 1 mesh (``Trainer.restore(shardings=...)``, the elastic
+    restore) and trains on DTensors to MESH_STEPS; the final state must be
+    bit-identical to an unmigrated, unsharded run's.  Each stretch is
+    counted against ``train_launches``.  Returns the launches."""
+    cfg = get_config("micro-lm")
+    kw = dict(mode="full", grad_compress=False, batch=TRAIN_BATCH, seq=TRAIN_SEQ, device=dev)
+    launches = {}
+
+    def segment(name, fn, expect):
+        out, got, wall = counted(fn)
+        if got != expect():
+            raise RuntimeError(f"[mesh] micro-lm {name}: launch counts {got}, expected {expect()}")
+        launches[name] = got
+        return out, wall
+
+    ref_tr = make_trainer(cfg, os.path.join(work, "unmigrated"), steps=MESH_STEPS,
+                          save_every=MESH_STEPS + 1, **kw)
+    segment("unmigrated", ref_tr.run, lambda: train_launches(
+        cfg, ref_tr, steps=MESH_STEPS, saves=1))
+    a = make_trainer(cfg, os.path.join(work, "siteA"), steps=MESH_STEPS, save_every=MESH_STEPS + 1,
+                     preempt_at=MESH_PREEMPT, **kw)
+    status_a, run_a_s = segment("site A", a.run, lambda: train_launches(
+        cfg, a, steps=MESH_PREEMPT, saves=1))
+    if status_a["status"] != "preempted" or status_a["step"] != MESH_PREEMPT:
+        raise RuntimeError(f"[mesh] site A: {status_a}")
+    dst, _ = migrate_job(a.ckpt, os.path.join(work, "siteB"), bandwidth_bps=BANDWIDTH_BPS,
+                         window_s=WINDOW_S)
+    b = make_trainer(cfg, os.path.join(work, "siteB"), steps=MESH_STEPS, save_every=MESH_STEPS + 1,
+                     **kw)
+    b.ckpt = dst
+    b.init_state()
+    shardings = named_shardings(param_pspecs(b.state_tree(), mesh=mesh), mesh)
+    step, restore_s = segment("site B restore", lambda: b.restore(shardings=shardings),
+                              lambda: train_launches(cfg, b, steps=0, restores=1))
+    if step != MESH_PREEMPT:
+        raise RuntimeError(f"[mesh] site B restored step {step}, expected {MESH_PREEMPT}")
+    kinds = {type(x).__name__ for _, x in flatten_with_paths(b.params)}
+    if kinds != {"DTensor"}:
+        raise RuntimeError(f"[mesh] restored params are {kinds}, not DTensors")
+    n0 = same_leaves("[mesh] state restored onto the mesh vs site A's",
+                     {"params": b.params, "opt": b.opt_state}, {"params": a.params, "opt": a.opt_state})
+    status_b, run_b_s = segment("site B on the mesh", b.run, lambda: train_launches(
+        cfg, b, steps=MESH_STEPS - MESH_PREEMPT, saves=1))
+    if status_b["step"] != MESH_STEPS:
+        raise RuntimeError(f"[mesh] site B: {status_b}")
+    n = same_leaves("[mesh] migrated, sharded final state vs the unmigrated, unsharded run's",
+                    {"params": b.params, "opt": b.opt_state},
+                    {"params": ref_tr.params, "opt": ref_tr.opt_state})
+    if open(b.ckpt.latest.path, "rb").read() != open(ref_tr.ckpt.latest.path, "rb").read():
+        raise RuntimeError("[mesh] site B's checkpoint of the sharded state differs from the "
+                           "unmigrated run's bytes")
+    losses = [row["loss"] for row in a.history + b.history]
+    log(f"[mesh] micro-lm lifecycle: site A {MESH_PREEMPT} steps unsharded ({run_a_s:.2f} s), "
+        f"full save, migrate_job, Trainer.restore(shardings=...) onto the 1 x 1 mesh "
+        f"({restore_s:.3f} s; {n0} leaves equal to site A's), site B "
+        f"{MESH_STEPS - MESH_PREEMPT} steps on DTensors ({run_b_s:.2f} s); loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; all {n} leaves of params and optimizer state bit-identical to the "
+        f"unmigrated, unsharded run's, and its final checkpoint ({b.ckpt.latest.nbytes} B) "
+        f"byte-identical")
+    for name, got in launches.items():
+        log(f"[mesh]   {name}: launches {got}, as derived")
+    total = {}
+    for got in launches.values():
+        total = {k: total.get(k, 0) + v for k, v in got.items()}
+    return total
+
+
+def run_mesh_qwen3(mesh, dev) -> dict:
+    """qwen3-1.7b in bf16, drawn on the card: the prefill of 2 x 512 tokens
+    on the mesh under the baseline rules and a greedy decode under
+    decode-tp, each bit-identical to the same call unsharded; the sharded
+    calls counted (K1 bf16 once a layer in the prefill, none in decode).
+    Returns their launches."""
+    cfg = get_config(MESH_ARCH)
+    model = build_model(cfg)
+    params = model.init(device=dev, generator=torch.Generator(device=dev).manual_seed(7))
+    data = SyntheticLMDataset(cfg.vocab_size, MESH_PREFILL_SEQ, MESH_PREFILL_BATCH, seed=5)
+    host = data.batch(0)
+    toks = torch.from_numpy(host["tokens"]).to(dev)
+    names = tuple(mesh.mesh_dim_names)
+    want, _ = model.forward(params, {"tokens": toks})
+    with use_rules(get_strategy("baseline")), force_mesh_axes(names):
+        dparams = shard_tree(params, mesh)
+        dbatch = make_global_batch({"tokens": host["tokens"]}, mesh,
+                                   {"tokens": logical_spec("batch", "seq")})
+        (got, _), pre, pre_s = counted(lambda: model.forward(dparams, dbatch))
+    if not isinstance(got, DTensor) or not torch.equal(got.full_tensor(), want):
+        raise RuntimeError(f"[mesh] {cfg.name} sharded prefill differs from the unsharded one")
+    if pre != exactly(pre, flash_attention_bf16=attn_layers(cfg)):
+        raise RuntimeError(f"[mesh] {cfg.name} sharded prefill launches {pre}")
+    del dparams, got, want
+    prompt = toks[:, :MESH_PROMPT]
+    cache_len = MESH_PROMPT + MESH_NEW
+
+    def decode(p, cache):
+        tok, outs, logits_all = prompt[:, 0], [prompt[:, 0]], []
+        for i in range(cache_len - 1):
+            logits, cache = model.decode_step(p, cache, {"token": tok, "index": i})
+            logits = logits.full_tensor() if isinstance(logits, DTensor) else logits
+            logits_all.append(logits)
+            nxt = torch.argmax(logits, dim=-1).to(prompt.dtype)
+            tok = prompt[:, i + 1] if i + 1 < MESH_PROMPT else nxt
+            outs.append(tok)
+        return torch.stack(outs, 1), torch.stack(logits_all, 1)
+
+    want_toks, want_logits = decode(params, model.init_cache(prompt.shape[0], cache_len, device=dev))
+    with use_rules(get_strategy("decode-tp")), force_mesh_axes(names):
+        dparams = shard_tree(params, mesh)
+        specs, pspecs = model.cache_specs(prompt.shape[0], cache_len)
+        zeros = tfm.zeros_like_specs(specs, dev)
+        cache = {blk: {k: distribute_tensor(zeros[blk][k], mesh, placements(
+            logical_spec(*pspecs[blk][k]), mesh), src_data_rank=None) for k in zeros[blk]}
+            for blk in zeros}
+        (got_toks, got_logits), dec, dec_s = counted(lambda: decode(dparams, cache))
+    if not (torch.equal(got_toks, want_toks) and torch.equal(got_logits, want_logits)):
+        raise RuntimeError(f"[mesh] {cfg.name} sharded decode differs from the unsharded one")
+    if dec != exactly(dec):
+        raise RuntimeError(f"[mesh] {cfg.name} sharded decode launches {dec}")
+    log(f"[mesh] {cfg.name} bf16 on the 1 x 1 mesh: prefill of {MESH_PREFILL_BATCH} x "
+        f"{MESH_PREFILL_SEQ} tokens under the baseline rules ({pre_s * 1e3:.1f} ms, first call) "
+        f"and greedy decode of {prompt.shape[0]} x {MESH_PROMPT} + {MESH_NEW} tokens under decode-tp "
+        f"({dec_s:.2f} s, {(cache_len - 1) / dec_s:.1f} steps/s) bit-identical to the same calls "
+        f"unsharded; launches: prefill {pre}, decode none")
+    del dparams, params, cache
+    torch.cuda.empty_cache()
+    return pre
+
+
+def run_mesh_crosspod(dev) -> dict:
+    """crosspod_allgather_mean_int8 over micro-lm's gradients on a (1, 1, 1)
+    ('pod', 'data', 'model') mesh: bit-identical to compress_roundtrip (one
+    pod), counted (K2 once per float leaf of at least one block, K3 once per
+    such leaf and pod).  Returns its launches."""
+    cfg = get_config("micro-lm")
+    model = build_model(cfg)
+    params = model.init(3, device=dev)
+    host = SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, CARD_CPU_BATCH, seed=2).batch(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    _, grads = value_and_grad(model, params, batch, "full")
+    pods = make_mesh((1, 1, 1), ("pod", "data", "model"), "cuda")
+    want = compress_roundtrip(grads)
+    got, counts, wall = counted(lambda: crosspod_allgather_mean_int8(grads, pods))
+    n = same_leaves("[mesh] crosspod_allgather_mean_int8 vs compress_roundtrip", got, want)
+    big = sum(1 for _, g in flatten_with_paths(grads) if g.is_floating_point() and g.numel() >= 256)
+    if counts != exactly(counts, quantize_int8=big, dequantize_int8=big):
+        raise RuntimeError(f"[mesh] crosspod launches {counts}, expected {big} K2 and {big} K3")
+    log(f"[mesh] crosspod_allgather_mean_int8 over micro-lm's gradients on a (1, 1, 1) pod mesh "
+        f"({wall * 1e3:.1f} ms): all {n} leaves bit-identical to compress_roundtrip; launches "
+        f"{counts}, as derived")
+    return counts
+
+
+def start_mesh_dryrun():
+    """Start ``python -m repro_torch.launch.dryrun`` on one cell in its own
+    process (its fake 256-rank world is process-global; it traces with
+    fake tensors and launches nothing, so it runs beside the phase's card
+    work).  Returns (the process, its start time, its record's path)."""
+    arch, shape, mesh = MESH_DRYRUN
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    out_dir = os.path.join(HERE, "build", "dryrun")
+    path = dryrun_launcher.artifact_path(out_dir, "baseline", mesh, arch, shape)
+    if os.path.exists(path):
+        os.remove(path)
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                             "--shape", shape, "--mesh", mesh, "--out", out_dir],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    return proc, time.perf_counter(), path
+
+
+def check_mesh_dryrun(started) -> dict:
+    """The dry-run cell's record: status OK and a peak per device under the
+    card's memory.  Returns the record."""
+    proc, t0, path = started
+    arch, shape, mesh = MESH_DRYRUN
+    out, err = proc.communicate(timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or not os.path.exists(path):
+        raise RuntimeError(f"[mesh] dryrun {arch} {shape} exited {proc.returncode}: "
+                           f"{out[-1500:]} {err[-1500:]}")
+    with open(path) as f:
+        rec = json.load(f)
+    card = torch.cuda.get_device_properties(0).total_memory
+    if rec["status"] != "OK" or not rec["memory"]["peak_bytes"] < card:
+        raise RuntimeError(f"[mesh] dryrun {arch} {shape}: {rec}")
+    log(f"[mesh] dryrun {arch} {shape} on the {mesh} mesh ({rec['n_chips']} fake ranks, "
+        f"{rec['device']} fake tensors; its process ran {wall:.1f} s beside the phase, the trace "
+        f"{rec['lower_compile_s']} s): {rec['status']}; per device "
+        f"{rec['hlo_flops_per_device']:.4e} FLOP, {rec['hlo_bytes_per_device']:.4e} B (unfused), "
+        f"collectives {rec['collectives']}, arguments {rec['memory']['argument_bytes']} B, peak "
+        f"{rec['memory']['peak_bytes']} B (card {card} B); roofline terms from NVIDIA's spec: "
+        f"compute {rec['t_compute_s']:.6f} s, memory {rec['t_memory_s']:.6f} s, collective "
+        f"{rec['t_collective_s']:.6f} s, bound by {rec['bottleneck']}")
+    return rec
+
+
+def phase_mesh(dev) -> dict:
+    """The sharding layer on the card: a real 1 x 1 ('data', 'model') mesh
+    over a one-rank process group (make_local_mesh), where every shard is
+    the whole tensor, so the DTensor programs run the same kernels as the
+    unsharded ones and must give the same bits: micro-lm's lifecycle
+    restored onto the mesh (run_mesh_lifecycle), qwen3-1.7b's sharded
+    prefill and decode (run_mesh_qwen3), the int8 cross-pod all-gather
+    (run_mesh_crosspod), sharded_batch, and one dry-run cell in its own
+    process, started first and run beside the rest (start_mesh_dryrun,
+    check_mesh_dryrun).  Returns the launches of the counted runs,
+    summed."""
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    total = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    dryrun = start_mesh_dryrun()
+    mesh = make_local_mesh()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as work:
+            add(run_mesh_lifecycle(mesh, dev, work))
+        add(run_mesh_qwen3(mesh, dev))
+        add(run_mesh_crosspod(dev))
+        data = SyntheticLMDataset(512, 64, 4, seed=9)
+        with force_mesh_axes(tuple(mesh.mesh_dim_names)):
+            sharded = data.sharded_batch(3, mesh, logical_spec("batch", "seq"))
+        for k, v in data.batch(3).items():
+            if not torch.equal(sharded[k].full_tensor().cpu(), torch.from_numpy(v)):
+                raise RuntimeError(f"[mesh] sharded_batch {k} differs from batch(3)")
+        log("[mesh] sharded_batch(3): DTensors whose full values equal batch(3)")
+        check_mesh_dryrun(dryrun)
+    finally:
+        dist.destroy_process_group()
+        if dryrun[0].poll() is None:
+            dryrun[0].kill()
+            dryrun[0].wait()
+    log(f"[mesh] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -3389,6 +3709,11 @@ def main() -> int:
         launches[name] += n
     log(f"[archs3] launches of the architectures' runs {archs3}; all counted paths {launches}")
     stamp("archs3")
+    mesh = phase_mesh(dev)
+    for name, n in mesh.items():
+        launches[name] += n
+    log(f"[mesh] launches of the mesh runs {mesh}; all counted paths {launches}")
+    stamp("mesh")
 
     rows = []
     for name, st in stats.items():

@@ -18,6 +18,8 @@ import torch
 from repro_torch.checkpoint import serializer as ser
 from repro_torch.convert import flatten_with_paths, params_to_numpy
 from repro_torch.device import DeviceLike
+from repro_torch.parallel.compat import distribute_tensor
+from repro_torch.parallel.sharding import NamedSharding
 
 
 @dataclass
@@ -133,9 +135,15 @@ class CheckpointManager:
         step: Optional[int] = None,
         device: DeviceLike = None,
         base: Optional[Any] = None,
+        shardings=None,
     ):
         """Load a checkpoint into the structure of ``like``, on ``device``
-        (default: the card) -- how a migrated job resumes at its new site."""
+        (default: the card) -- how a migrated job resumes at its new site.
+        With ``shardings`` (a tree like ``like``'s whose leaves are
+        ``parallel.sharding.NamedSharding`` or None), each leaf is placed on
+        that mesh with those placements, every rank keeping its shard of
+        the same bytes: the elastic restore, by which a migrated job resumes
+        on a differently shaped slice."""
         self.wait()
         infos = [i for i in self._history if step is None or i.step == step]
         if not infos:
@@ -145,7 +153,10 @@ class CheckpointManager:
             payload = ser.from_bytes(f.read())
         if payload.manifest["mode"] == "delta-int8" and base is None:
             base = self._base_cache
-        return ser.deserialize_tree(payload, like, base=base, device=device), info
+        tree = ser.deserialize_tree(payload, like, base=base, device=device)
+        if shardings is not None:
+            tree = _place(tree, shardings)
+        return tree, info
 
     def _gc(self):
         while len(self._history) > self.keep:
@@ -169,3 +180,12 @@ class CheckpointManager:
             f.write(raw)
         mgr._history.append(CheckpointInfo(job, step, path, len(raw), "?", 0.0))
         return mgr
+
+
+def _place(tree, shardings):
+    if isinstance(tree, dict):
+        return {k: _place(v, shardings.get(k) if shardings is not None else None)
+                for k, v in tree.items()}
+    if isinstance(shardings, NamedSharding) and isinstance(tree, torch.Tensor):
+        return distribute_tensor(tree, shardings.mesh, shardings.placements, src_data_rank=None)
+    return tree

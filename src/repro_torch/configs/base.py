@@ -4,13 +4,41 @@ Every architecture is expressed as a ``ModelConfig``; the model factory
 (``repro_torch.models.model``) consumes only this dataclass.  The fields are
 the JAX package's, so a config means the same model in both packages.
 ``param_count`` / ``active_param_count`` are copies of the reference's
-analytic counts.
+analytic counts.  ``SHAPES`` are the assigned input shapes the mesh dry-run
+(``launch/dryrun.py``) lowers:
+
+    train_4k     seq_len=4096    global_batch=256   (training step)
+    prefill_32k  seq_len=32768   global_batch=32    (inference prefill)
+    decode_32k   seq_len=32768   global_batch=128   (one-token decode, KV=32k)
+    long_500k    seq_len=524288  global_batch=1     (long-context decode)
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned (seq_len, global_batch) input shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
 
 # Block kinds usable in ``block_pattern`` (the repeating layer-group unit):
 #   'attn'         full causal self-attention + MLP
@@ -94,6 +122,21 @@ class ModelConfig:
     @property
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """True if the layer stack is dominated by non-attention mixers
+        (eligible for the long_500k shape)."""
+        n_attn = sum(1 for b in self.block_pattern if b.startswith("attn"))
+        return n_attn < len(self.block_pattern) / 2
+
+    def shapes(self) -> Tuple[str, ...]:
+        """Assigned shapes applicable to this architecture: long_500k only
+        for a sub-quadratic stack."""
+        out = ["train_4k", "prefill_32k", "decode_32k"]
+        if self.is_subquadratic:
+            out.append("long_500k")
+        return tuple(out)
 
     def reduced(self) -> "ModelConfig":
         """Tiny same-family config for CPU tests (the JAX package's rule)."""

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.parallel.compat import DTensor
 
 
 def tree_map(fn: Callable[[Any], Any], tree):
@@ -104,6 +105,8 @@ def params_from_numpy(tree, device: DeviceLike = None) -> dict:
 
 
 def _host(x):
+    if isinstance(x, DTensor):  # a sharded leaf is gathered whole
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
         return x.detach().cpu()
     return _to_numpy(x)
@@ -111,7 +114,9 @@ def _host(x):
 
 def params_to_numpy(tree) -> dict:
     """Host copy of a tree (the gather before a checkpoint is written):
-    numpy arrays, and a bfloat16 leaf as a CPU tensor."""
+    numpy arrays, and a bfloat16 leaf as a CPU tensor; a DTensor leaf is
+    gathered (``full_tensor``) first, so its bytes are an unsharded
+    leaf's."""
     return tree_map(_host, tree)
 
 

@@ -5,8 +5,9 @@ Tokens follow a noisy affine recurrence (t_{i+1} = (a·t_i + b) mod V with
 p_noise random replacements) so a model can learn structure.  batch(step)
 is a pure function of (seed, step), so a job restored from a step-K
 checkpoint -- possibly at another site after a migration -- resumes the
-exact token stream with no state file.  The mesh-sharded variants of the
-JAX package wait for the port's sharding layer (ROADMAP Queue 1, item 12).
+exact token stream with no state file.  ``sharded_batch`` and
+``make_global_batch`` place a host batch on a device mesh as DTensors,
+each rank taking its shard of the same host arrays.
 """
 from __future__ import annotations
 
@@ -14,6 +15,10 @@ from dataclasses import dataclass
 from typing import Dict
 
 import numpy as np
+import torch
+
+from repro_torch.parallel.compat import DeviceMesh, DTensor, distribute_tensor
+from repro_torch.parallel.sharding import placements
 
 
 @dataclass
@@ -37,3 +42,18 @@ class SyntheticLMDataset:
             nxt = (self.a * toks[:, i] + self.b) % V
             toks[:, i + 1] = np.where(noise[:, i], rand[:, i], nxt)
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:].astype(np.int32)}
+
+    def sharded_batch(self, step: int, mesh: DeviceMesh, spec) -> Dict[str, DTensor]:
+        """``batch(step)`` as DTensors on ``mesh``, every leaf placed by the
+        PartitionSpec ``spec``: its full value is ``batch(step)``."""
+        return make_global_batch(self.batch(step), mesh, {k: spec for k in ("tokens", "labels")})
+
+
+def make_global_batch(host_batch: Dict[str, np.ndarray], mesh: DeviceMesh,
+                      specs) -> Dict[str, DTensor]:
+    """A host batch (the same arrays on every rank) as DTensors on ``mesh``,
+    leaf ``k`` placed by ``specs[k]``; each rank keeps only its shard (no
+    collective)."""
+    return {k: distribute_tensor(torch.from_numpy(np.ascontiguousarray(v)).to(mesh.device_type),
+                                 mesh, placements(specs[k], mesh), src_data_rank=None)
+            for k, v in host_batch.items()}

@@ -24,6 +24,9 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -72,6 +75,33 @@ def _forward(q, k, v, mask_kind, window, attn_softcap,
     return o
 
 
+def _traced(q: torch.Tensor) -> bool:
+    """Whether a call is traced: a fake tensor, or a dispatch mode on
+    (``FlopCounterMode``, the dry-run's recorder)."""
+    return isinstance(q, FakeTensor) or _get_current_dispatch_mode() is not None
+
+
+# The entries are also custom ops, so that a fake tensor (the mesh dry-run)
+# traces through them with no launch and FlopCounterMode counts them; an
+# untraced call runs the implementation directly, without the op's
+# dispatch.  The launch counters count in the implementations only.
+def _fwd_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask_kind: str, window: int,
+              attn_softcap: float, with_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, s, nh, _ = q.shape
+    lse = torch.empty((b, nh, s) if with_lse else (0,), dtype=torch.float32, device=q.device)
+    return _forward(q, k, v, mask_kind, window, attn_softcap, lse if with_lse else None), lse
+
+
+_fwd_op = torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(),
+                                  device_types="cuda")(_fwd_impl)
+
+
+@_fwd_op.register_fake
+def _(q, k, v, mask_kind, window, attn_softcap, with_lse):
+    b, s, nh, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, nh, s) if with_lse else (0,), dtype=torch.float32)
+
+
 def flash_attention_cuda(
     q: torch.Tensor,  # (b, s, nh, hd)
     k: torch.Tensor,  # (b, t, nkv, hd)
@@ -82,7 +112,8 @@ def flash_attention_cuda(
     attn_softcap: float = 0.0,
 ) -> torch.Tensor:
     _check_qkv(q, k, v, mask_kind)
-    return _forward(q, k, v, mask_kind, window, attn_softcap, None)
+    fwd = _fwd_op if _traced(q) else _fwd_impl
+    return fwd(q, k, v, mask_kind, int(window), float(attn_softcap), False)[0]
 
 
 def flash_attention_lse_cuda(
@@ -93,9 +124,8 @@ def flash_attention_lse_cuda(
     base 2 of the scores times log2 e (``ref.flash_attention_lse_ref``):
     what the backward reads.  Counts as one K1 launch."""
     _check_qkv(q, k, v, mask_kind)
-    b, s, nh, _ = q.shape
-    lse = torch.empty((b, nh, s), dtype=torch.float32, device=q.device)
-    return _forward(q, k, v, mask_kind, window, attn_softcap, lse), lse
+    fwd = _fwd_op if _traced(q) else _fwd_impl
+    return fwd(q, k, v, mask_kind, int(window), float(attn_softcap), True)
 
 
 def flash_attention_bwd_cuda(
@@ -115,6 +145,15 @@ def flash_attention_bwd_cuda(
             raise ValueError(f"{name} must be {dtype} on {q.device}, got {x.dtype} on {x.device}")
         if tuple(x.shape) != tuple(shape) or not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous of shape {tuple(shape)}, got {tuple(x.shape)}")
+    bwd = _bwd_op if _traced(q) else _bwd_impl
+    return bwd(q, k, v, o, lse, do, mask_kind, int(window), float(attn_softcap))
+
+
+def _bwd_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+            do: torch.Tensor, mask_kind: str, window: int,
+            attn_softcap: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    b, s, nh, hd = q.shape
+    t, nkv = k.shape[1], k.shape[2]
     for name, x in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do), ("lse", lse)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (the kernel copies 16-byte vectors)")
@@ -133,6 +172,41 @@ def flash_attention_bwd_cuda(
     else:
         flash_attention_bwd_cuda.launches += 1
     return dq, dk, dv
+
+
+_bwd_op = torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
+                                  device_types="cuda")(_bwd_impl)
+
+
+@_bwd_op.register_fake
+def _(q, k, v, o, lse, do, mask_kind, window, attn_softcap):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def visible_pairs(s: int, mask_kind: str, window: int) -> int:
+    """(query, key) pairs a square (s x s) self-attention mask lets through."""
+    if mask_kind == "full":
+        return s * s
+    if mask_kind == "window" and 0 < window < s:
+        return window * (window + 1) // 2 + (s - window) * window
+    return s * (s + 1) // 2
+
+
+# FLOP formulas get shapes (torch.Size) in place of the tensors.
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _fwd_flop_formula(q, k, v, mask_kind, window, attn_softcap, with_lse, *args,
+                      out_val=None, **kwargs) -> int:
+    """QK^T and PV over the visible pairs: 4 b nh hd pairs."""
+    b, s, nh, hd = q
+    return 4 * b * nh * hd * visible_pairs(s, mask_kind, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _bwd_flop_formula(q, k, v, o, lse, do, mask_kind, window, attn_softcap, *args,
+                      out_val=None, **kwargs) -> int:
+    """S, dP, dV, dQ and dK over the visible pairs: 10 b nh hd pairs."""
+    b, s, nh, hd = q
+    return 10 * b * nh * hd * visible_pairs(s, mask_kind, window)
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -15,6 +15,7 @@ from repro_torch.kernels import decide as dc
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import quantize as qz
 from repro_torch.kernels import ref
+from repro_torch.parallel.compat import DTensor, Replicate, Shard
 
 # counter name -> (wrapper, the wrapper's attribute that counts the launches)
 _COUNTERS = {
@@ -46,7 +47,14 @@ def flash_attention(
     that requires grad) goes through ``FlashAttentionFn``: K1 forward, the
     attention-backward kernel backward.  Any other call (prefill, serving,
     ``no_grad`` / ``inference_mode``) runs K1 alone.  On the CPU, autograd
-    differentiates the plain version."""
+    differentiates the plain version.
+
+    DTensor inputs (a mesh) run the same local computation on each rank's
+    shard: ``_local_qkv_placements`` first redistributes q, k and v so that
+    the attention math is local, and the output has q's placements."""
+    if isinstance(q, DTensor):
+        return _flash_attention_sharded(q, k, v, mask_kind=mask_kind, window=window,
+                                        attn_softcap=attn_softcap)
     if _on_card(q):
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
             return fa.FlashAttentionFn.apply(q, k, v, mask_kind, window, attn_softcap)
@@ -56,13 +64,47 @@ def flash_attention(
                                    attn_softcap=attn_softcap)
 
 
+def _local_qkv_placements(q: DTensor, nkv: int) -> tuple:
+    """Placements of q, k and v under which attention is local: the batch
+    (dim 0) may stay sharded, the query heads (dim 2) too where the kv
+    heads split over the same mesh dims into whole groups; the sequence,
+    head_dim and any pending sum are replicated (a sequence-sharded q is
+    gathered, as XLA gathers around the reference's Pallas call)."""
+    mesh = q.device_mesh
+    heads = [i for i, pl in enumerate(q.placements) if isinstance(pl, Shard) and pl.dim == 2]
+    n = 1
+    for i in heads:
+        n *= mesh.size(i)
+    keep = {0, 2} if nkv % n == 0 else {0}
+    return tuple(pl if isinstance(pl, Shard) and pl.dim in keep else Replicate()
+                 for pl in q.placements)
+
+
+def _flash_attention_sharded(q, k, v, **kw):
+    mesh = q.device_mesh
+    want = _local_qkv_placements(q, k.shape[2])
+    q, k, v = (x.redistribute(mesh, want) if tuple(x.placements) != want else x
+               for x in (q, k, v))
+    out = flash_attention(q.to_local().contiguous(), k.to_local().contiguous(),
+                          v.to_local().contiguous(), **kw)
+    return DTensor.from_local(out, mesh, want, run_check=False)
+
+
+def _plain(x: torch.Tensor, name: str) -> None:
+    if isinstance(x, DTensor):
+        raise TypeError(f"{name} takes a plain tensor: quantize a DTensor's local shard "
+                        "(optim/grad_compress.py) or its full value (checkpoints)")
+
+
 def quantize_int8(x: torch.Tensor, *, block: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
+    _plain(x, "quantize_int8")
     if _on_card(x):
         return qz.quantize_int8_cuda(x, block=block)
     return ref.quantize_int8_ref(x, block=block)
 
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, *, block: int = 256) -> torch.Tensor:
+    _plain(q, "dequantize_int8")
     if _on_card(q):
         return qz.dequantize_int8_cuda(q, scale, block=block)
     return ref.dequantize_int8_ref(q, scale, block=block)

@@ -18,6 +18,8 @@ BLOCK = 256  # the kernels' quantization group; the serializer's BLOCK
 
 
 def _check(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
+    if type(t) is not torch.Tensor:  # a subclass's data_ptr need not be its data
+        raise TypeError(f"{name} must be a plain torch.Tensor, got {type(t).__name__}")
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:

@@ -8,13 +8,16 @@ as in the JAX package, where they are no Pallas kernel either.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.layers import rms_norm_1d, truncated_normal
+from repro_torch.parallel import shards
+from repro_torch.parallel.compat import DTensor, Replicate, Shard
+from repro_torch.parallel.sharding import shd
 
 NEG_INF = -2.0e38
 
@@ -71,8 +74,14 @@ def attend_ref(
     qpos: Optional[torch.Tensor] = None,  # (b, s)
     kpos: Optional[torch.Tensor] = None,  # (b, t)
     kv_valid: Optional[torch.Tensor] = None,  # (b, t) bool — decode cache validity
+    all_reduce: Optional[Callable] = None,
 ) -> torch.Tensor:
-    """Quadratic GQA attention, f32 softmax. Returns (b, s, nh, hd)."""
+    """Quadratic GQA attention, f32 softmax. Returns (b, s, nh, hd).
+
+    With ``all_reduce`` (``all_reduce(t, op)``, op "max" or "sum" over the
+    ranks that hold the other keys), k and v are this rank's share of the
+    keys and the softmax is partial: the row max, the row sum and the
+    output are reduced over the shares."""
     b, s, nh, hd = q.shape
     t, nkv = k.shape[1], k.shape[2]
     g = nh // nkv
@@ -90,15 +99,20 @@ def attend_ref(
     if kv_valid is not None:
         scores = torch.where(kv_valid[:, None, None, None, :], scores,
                              torch.full((), NEG_INF, device=q.device))
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgst,btkh->bskgh", probs, v)
+    if all_reduce is None:
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        out = torch.einsum("bkgst,btkh->bskgh", probs, v)
+    else:
+        e = torch.exp(scores - all_reduce(torch.amax(scores, dim=-1, keepdim=True), "max"))
+        probs = (e / all_reduce(torch.sum(e, dim=-1, keepdim=True), "sum")).to(q.dtype)
+        out = all_reduce(torch.einsum("bkgst,btkh->bskgh", probs, v), "sum")
     return out.reshape(b, s, nh, hd)
 
 
 def _project_qkv(p, x, kv_x, *, qk_norm):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("btd,dhk->bthk", kv_x, p["wk"])
-    v = torch.einsum("btd,dhk->bthk", kv_x, p["wv"])
+    q = shards.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = shards.einsum("btd,dhk->bthk", kv_x, p["wk"])
+    v = shards.einsum("btd,dhk->bthk", kv_x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if qk_norm:
@@ -125,13 +139,17 @@ def apply_attention(
     feed the rope, so M-RoPE's t / h / w ids may repeat or jump."""
     q, k, v = _project_qkv(p, x, x, qk_norm=qk_norm)
     q = rope_lib.apply_positional(q, positions, rope_type, rope_theta, mrope_sections)
+    q = shd(q, "batch", "seq", "heads_act", "head_dim")
     k = rope_lib.apply_positional(k, positions, rope_type, rope_theta, mrope_sections)
+    k = shd(k, "batch", None, "heads_act", "head_dim")
+    v = shd(v, "batch", None, "heads_act", "head_dim")
     # The kernel reads (b, s, heads, hd) rows directly.
     out = kernel_ops.flash_attention(
         q.contiguous(), k.contiguous(), v.contiguous(),
         mask_kind=mask_kind, window=window, attn_softcap=attn_softcap,
     )
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    out = shd(out, "batch", "seq", "heads_act", "head_dim")
+    return shards.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 def apply_cross_attention(p: dict, x: torch.Tensor, kv) -> torch.Tensor:
@@ -142,19 +160,20 @@ def apply_cross_attention(p: dict, x: torch.Tensor, kv) -> torch.Tensor:
     full mask, as in the JAX package, where it is no Pallas kernel."""
     if isinstance(kv, tuple):
         k, v = kv
-        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+        q = shards.einsum("bsd,dhk->bshk", x, p["wq"])
         if "bq" in p:
             q = q + p["bq"]
     else:
         q, k, v = _project_qkv(p, x, kv, qk_norm=False)
-    out = attend_ref(q, k, v, mask_kind="full")
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    out = shards.on_shards(lambda ql, kl, vl: attend_ref(ql, kl, vl, mask_kind="full"), q, k, v,
+                           batched=(0, 1))
+    return shards.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 def cross_kv(p: dict, enc_out: torch.Tensor):
     """(k, v), each (b, t, nkv, hd), of the encoder output (b, t, d)."""
-    k = torch.einsum("btd,dhk->bthk", enc_out, p["wk"])
-    v = torch.einsum("btd,dhk->bthk", enc_out, p["wv"])
+    k = shards.einsum("btd,dhk->bthk", enc_out, p["wk"])
+    v = shards.einsum("btd,dhk->bthk", enc_out, p["wv"])
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
     return k, v
@@ -185,6 +204,7 @@ def apply_attention_decode(
     mask_kind: str = "causal",
     window: int = 0,
     attn_softcap: float = 0.0,
+    long_context: bool = False,
 ):
     """One-token attention step.  Unlike the JAX package, which returns a
     new cache, the port writes the new key and value into ``cache`` in
@@ -197,7 +217,14 @@ def apply_attention_decode(
     full-sequence forward past the window too.  (The reference writes with
     ``dynamic_update_slice``, which clamps every position past T - 1 into
     the last slot, and its mask then drops the wrong keys.)  Any other
-    layer's cache holds every position: ``index`` must be below T."""
+    layer's cache holds every position: ``index`` must be below T.
+
+    A DTensor cache stays where its placements put it (``long_context``
+    selects the reference's long-context pspecs: no batch sharding, the
+    sequence over ('data', 'model')): the new key and value are written on
+    the shard that owns the slot only, and a sequence-sharded cache is
+    attended shard by shard with a partial softmax (``_attend_sharded``),
+    so decode moves no cache between ranks."""
     q, k, v = _project_qkv(p, x, x, qk_norm=qk_norm)
     q = rope_lib.apply_positional(q, positions, rope_type, rope_theta, mrope_sections)
     k = rope_lib.apply_positional(k, positions, rope_type, rope_theta, mrope_sections)
@@ -205,6 +232,15 @@ def apply_attention_decode(
     b, T = x.shape[0], ck.shape[1]
     if mask_kind != "window" and index >= T:
         raise IndexError(f"decode position {index} beyond the cache's {T} slots")
+    if isinstance(ck, DTensor):
+        seq_axis = "kv_long" if long_context else "kv_seq"
+        batch_axis = None if long_context else "dp_batch"
+        for c in (ck, cv):
+            if shd(c, batch_axis, seq_axis, None, None) is not c:
+                raise ValueError(f"decode cache placed {c.placements}, not by the cache pspecs")
+        out = _attend_sharded(q, k, v, ck, cv, index, mask_kind=mask_kind, window=window,
+                              attn_softcap=attn_softcap)
+        return shards.einsum("bshk,hkd->bsd", out, p["wo"]), cache
     slot = index % T
     ck[:, slot] = k[:, 0].to(ck.dtype)
     cv[:, slot] = v[:, 0].to(cv.dtype)
@@ -220,5 +256,49 @@ def apply_attention_decode(
         window=window, attn_softcap=attn_softcap,
         qpos=qpos, kpos=kpos, kv_valid=valid,
     )
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    y = shards.einsum("bshk,hkd->bsd", out, p["wo"])
     return y, cache
+
+
+def _attend_sharded(q, k, v, ck: DTensor, cv: DTensor, index: int, *, mask_kind: str,
+                    window: int, attn_softcap: float) -> DTensor:
+    """Decode attention of q (b, 1, nh, hd) over a DTensor cache (b, T, nkv,
+    hd) whose batch and sequence dims may be sharded.  q, k and v take the
+    cache's batch placement; the new k / v go into the local cache only on
+    the rank whose sequence shard holds slot ``index % T``; each rank
+    scores its own slots, and over sequence shards the softmax is partial
+    (``attend_ref``'s ``all_reduce``): all-reduces of the row max, the row
+    sum and the output (a few KB a token), never of the cache."""
+    import torch.distributed._functional_collectives as funcol
+
+    mesh = ck.device_mesh
+    want = tuple(pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+                 for pl in ck.placements)
+    q, k, v = (x if tuple(x.placements) == want else x.redistribute(mesh, want)
+               for x in (q, k, v))
+    seq_dims = [i for i, pl in enumerate(ck.placements) if isinstance(pl, Shard) and pl.dim == 1]
+    coord = mesh.get_coordinate()
+    shard, n_seq = 0, 1
+    for i in seq_dims:  # row-major over the mesh dims that split the sequence
+        shard, n_seq = shard * mesh.size(i) + coord[i], n_seq * mesh.size(i)
+    ql, ckl, cvl = q.to_local(), ck.to_local(), cv.to_local()
+    T, Tl = ck.shape[1], ckl.shape[1]
+    slot = index % T
+    if slot // Tl == shard:
+        ckl[:, slot - shard * Tl] = k.to_local()[:, 0].to(ckl.dtype)
+        cvl[:, slot - shard * Tl] = v.to_local()[:, 0].to(cvl.dtype)
+    slots = shard * Tl + torch.arange(Tl, device=ckl.device)
+    b = ql.shape[0]
+    kpos = (index - torch.remainder(index - slots, T)).expand(b, Tl)
+    qpos = torch.full((b, 1), index, device=ckl.device)
+    reduce = None
+    if n_seq > 1:
+        def reduce(t, op):
+            for i in seq_dims:
+                t = funcol.all_reduce(t, op, (mesh, i))
+            return t
+
+    out = attend_ref(ql, ckl, cvl, mask_kind="window" if mask_kind == "window" else "full",
+                     window=window, attn_softcap=attn_softcap, qpos=qpos, kpos=kpos,
+                     kv_valid=kpos >= 0, all_reduce=reduce)
+    return DTensor.from_local(out, mesh, want, run_check=False)

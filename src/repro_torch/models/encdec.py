@@ -21,12 +21,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (
-    apply_embed, apply_mlp, apply_norm, apply_unembed, cross_entropy, init_embed, init_mlp,
-    init_norm,
+    TensorSpec, apply_embed, apply_mlp, apply_norm, apply_unembed, cross_entropy, init_embed,
+    init_mlp, init_norm,
 )
 from repro_torch.models.transformer import (
     _dtype, _index, _remat, init_pos_embed, init_stacked, zeros_like_specs,
 )
+from repro_torch.parallel.sharding import shd
 
 _NO_ROPE = dict(rope_type="none", rope_theta=0.0)
 
@@ -67,7 +68,7 @@ def init_encdec(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
 
 def encode(params, frames: torch.Tensor, cfg: ModelConfig, remat_policy: str = "full"):
     """(b, t, d) encoder output of (b, t, d) frame embeddings."""
-    x = frames.to(_dtype(cfg))
+    x = shd(frames.to(_dtype(cfg)), "batch", None, "embed_act")
     b, t = x.shape[0], x.shape[1]
     positions = torch.arange(t, device=x.device).expand(b, t)
 
@@ -95,6 +96,7 @@ def decode_train(params, enc_out, tokens, cfg: ModelConfig, remat_policy: str = 
     x = apply_embed(params["embed"], tokens)
     b, s = x.shape[0], x.shape[1]
     x = x + params["pos_embed"]["table"][:s][None].to(x.dtype)
+    x = shd(x, "batch", "seq", "embed_act")
     positions = torch.arange(s, device=x.device).expand(b, s)
 
     def block(x, p):
@@ -136,15 +138,18 @@ def encdec_loss(params, batch, cfg: ModelConfig, *, remat_policy: str = "full"):
 # ---------------------------------------------------------------------------
 
 
-def encdec_cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    """{'self': {'k', 'v'}: (L, b, max_len, nkv, hd), 'cross': {'k', 'v'}:
-    (L, b, encoder_seq, nkv, hd)}, as (shape, dtype)."""
+def encdec_cache_specs(cfg: ModelConfig, batch: int, max_len: int):
+    """(specs, logical pspecs): {'self': {'k', 'v'}: (L, b, max_len, nkv,
+    hd), 'cross': {'k', 'v'}: (L, b, encoder_seq, nkv, hd)} as TensorSpecs,
+    and the reference's pspecs (the self cache's sequence on 'kv_seq')."""
     dt = _dtype(cfg)
     tail = (cfg.num_kv_heads, cfg.resolved_head_dim)
-    self_shape = (cfg.num_layers, batch, max_len, *tail)
-    cross_shape = (cfg.num_layers, batch, cfg.encoder_seq, *tail)
-    return {"self": {"k": (self_shape, dt), "v": (self_shape, dt)},
-            "cross": {"k": (cross_shape, dt), "v": (cross_shape, dt)}}
+    self_spec = TensorSpec((cfg.num_layers, batch, max_len, *tail), dt)
+    cross_spec = TensorSpec((cfg.num_layers, batch, cfg.encoder_seq, *tail), dt)
+    sp = ("layers", "dp_batch", "kv_seq", None, None)
+    cp = ("layers", "dp_batch", None, None, None)
+    return ({"self": {"k": self_spec, "v": self_spec}, "cross": {"k": cross_spec, "v": cross_spec}},
+            {"self": {"k": sp, "v": sp}, "cross": {"k": cp, "v": cp}})
 
 
 def encdec_init_cache(params, frames, cfg: ModelConfig, batch: int, max_len: int) -> dict:
@@ -153,7 +158,7 @@ def encdec_init_cache(params, frames, cfg: ModelConfig, batch: int, max_len: int
     enc_out = encode(params, frames, cfg)
     kv = [attn_lib.cross_kv(_index(params["dec_groups"], i)["cross_attn"], enc_out)
           for i in range(cfg.num_layers)]
-    cache = zeros_like_specs({"self": encdec_cache_specs(cfg, batch, max_len)["self"]},
+    cache = zeros_like_specs({"self": encdec_cache_specs(cfg, batch, max_len)[0]["self"]},
                              enc_out.device)
     cache["cross"] = {"k": torch.stack([k for k, _ in kv]), "v": torch.stack([v for _, v in kv])}
     return cache

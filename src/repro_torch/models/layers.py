@@ -9,9 +9,23 @@ time.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel.shards import matmul, on_shards, take_rows
+from repro_torch.parallel.sharding import shd
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of a tensor that is not allocated (the port's
+    ``jax.ShapeDtypeStruct``): the leaves of ``cache_specs`` and
+    ``Model.input_specs``."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
 
 _TRUNC = 2.0  # the JAX package's truncation, in standard deviations
 _CDF_LO = 0.5 * (1.0 + math.erf(-_TRUNC / math.sqrt(2.0)))
@@ -98,8 +112,9 @@ def init_mlp(gen, d: int, d_ff: int, num_layers: int, dtype, device) -> dict:
 
 
 def apply_mlp(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
-    h = activation(act)(x @ p["wg"]) * (x @ p["wi"])
-    return h @ p["wo"]
+    h = activation(act)(matmul(x, p["wg"])) * matmul(x, p["wi"])
+    h = shd(h, "batch", "seq", "mlp_act")
+    return matmul(h, p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -112,22 +127,27 @@ def init_embed(gen, vocab: int, d: int, dtype, device) -> dict:
 
 
 def apply_embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens.long()]
+    return take_rows(p["table"], tokens.long())
 
 
 def apply_unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """x: (..., d) @ table.T -> logits.  ``table`` is (vocab, d) when tied
     (embed table) or (d, vocab) for a dedicated unembed matrix."""
-    if table.shape[0] == x.shape[-1]:
-        return x @ table
-    return x @ table.T
+    logits = matmul(x, table if table.shape[0] == x.shape[-1] else table.T)
+    return shd(logits, "batch", "seq", "vocab_act")
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean token-level cross entropy in f32. labels < 0 are masked."""
+    """Mean token-level cross entropy in f32. labels < 0 are masked.  On a
+    DTensor each rank scores its own tokens (the whole vocabulary row),
+    then the sums are reduced."""
+    nll, mask = on_shards(_token_nll, logits, labels, keep=(0, 1), batched=(0,))
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor):
+    """(nll, mask) per token, f32: ``cross_entropy``'s terms."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
-    nll = logz - gold
-    mask = (labels >= 0).float()
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return logz - gold, (labels >= 0).float()

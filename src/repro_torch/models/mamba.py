@@ -24,6 +24,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import truncated_normal
+from repro_torch.parallel.compat import DTensor
+from repro_torch.parallel.shards import on_shards
+from repro_torch.parallel.sharding import shd
 
 CHUNK = 256
 
@@ -107,9 +110,20 @@ def apply_mamba(p: dict, x: torch.Tensor, *, d_state: int, return_state: bool = 
     package, so ``s`` must be a multiple of that count.  With
     ``return_state``, also the decode state after the last token ({'conv',
     'ssm'}, as ``apply_mamba_decode`` takes it), so that decode can follow a
-    prefill."""
+    prefill.
+
+    On a DTensor the scan runs on each rank's batch shard with the
+    sequence gathered (``parallel/shards.on_shards``): the scan carries
+    its state along the sequence."""
+    if isinstance(x, DTensor):
+        out = on_shards(lambda xl, pl: apply_mamba(pl, xl, d_state=d_state,
+                                                   return_state=return_state), x, p)
+        if return_state:
+            return shd(out[0], "batch", "seq", None), out[1]
+        return shd(out, "batch", "seq", None)
     b, s, _ = x.shape
     xi, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
+    xi = shd(xi, "batch", "seq", None)
     xc, _ = _causal_conv(xi, p["conv_w"], p["conv_b"])
     xc = F.silu(xc)
     dt, B, C = _ssm_params(p, xc, d_state)
@@ -126,7 +140,7 @@ def apply_mamba(p: dict, x: torch.Tensor, *, d_state: int, return_state: bool = 
         h, y = _scan_chunk(h, p["A_log"], dt[:, t], B[:, t], C[:, t], xcf[:, t])
         ys.append(y)
     y = torch.cat(ys, dim=1) + xcf * p["D"]
-    y = y.to(x.dtype) * F.silu(z)
+    y = shd(y.to(x.dtype) * F.silu(z), "batch", "seq", None)
     out = y @ p["out_proj"]
     if not return_state:
         return out
@@ -149,8 +163,19 @@ def mamba_state_spec(batch: int, d: int, *, expand: int, d_state: int, d_conv: i
             "ssm": ((batch, d_in, d_state), torch.float32)}
 
 
+def mamba_state_pspecs(long_context: bool = False) -> dict:
+    """Logical pspecs of ``mamba_state_spec``'s leaves (the reference's)."""
+    inner = "kv_long" if long_context else "model"
+    b = None if long_context else "dp_batch"
+    return {"conv": (b, None, inner), "ssm": (b, inner, None)}
+
+
 def apply_mamba_decode(p: dict, x: torch.Tensor, state: dict, *, d_state: int):
-    """x: (b, 1, d); state: {'conv', 'ssm'} -> (y (b, 1, d), new state)."""
+    """x: (b, 1, d); state: {'conv', 'ssm'} -> (y (b, 1, d), new state).
+    On a DTensor, per batch shard with the state placed as x."""
+    if isinstance(x, DTensor):
+        return on_shards(lambda xl, pl, st: apply_mamba_decode(pl, xl, st, d_state=d_state),
+                         x, p, state, batched=(1,))
     xi, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
     xc, conv_state = _causal_conv(xi, p["conv_w"], p["conv_b"], state=state["conv"])
     xc = F.silu(xc)

@@ -20,6 +20,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import activation, truncated_normal
+from repro_torch.parallel.compat import DTensor
+from repro_torch.parallel.shards import full_local, keep_only, replicated, shard_mean, wrap_like
+from repro_torch.parallel.sharding import shd
 
 
 def init_moe(gen, d: int, d_ff: int, num_experts: int, num_layers: int, dtype, device) -> dict:
@@ -40,33 +43,64 @@ def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def router_probs(p: dict, x: torch.Tensor, top_k: int):
-    """Returns (combine (b,s,E) f32, dispatch (b,s,E) f32 0/1, aux_loss scalar)."""
+def _route(p: dict, x: torch.Tensor, top_k: int):
+    """(combine (b,s,E) f32, dispatch (b,s,E) f32 0/1, probs (b,s,E) f32)."""
     logits = (x.float() @ p["router"]).float()  # (b,s,E)
     probs = torch.softmax(logits, dim=-1)
     top_vals, top_idx = topk_stable(probs, top_k)  # (b,s,k)
     top_vals = top_vals / torch.sum(top_vals, dim=-1, keepdim=True)
-    num_experts = logits.shape[-1]
-    onehot = F.one_hot(top_idx, num_experts).float()  # (b,s,k,E)
+    onehot = F.one_hot(top_idx, logits.shape[-1]).float()  # (b,s,k,E)
     dispatch = onehot.sum(dim=-2)
     combine = torch.einsum("bsk,bske->bse", top_vals, onehot)
-    # Switch-style load-balance aux loss.
+    return combine, dispatch, probs
+
+
+def _aux(frac_tokens, frac_probs, num_experts: int):
+    """Switch-style load-balance aux loss of the per-expert token and
+    probability fractions."""
+    return num_experts * torch.sum(frac_tokens * frac_probs)
+
+
+def router_probs(p: dict, x: torch.Tensor, top_k: int):
+    """Returns (combine (b,s,E) f32, dispatch (b,s,E) f32 0/1, aux_loss scalar)."""
+    combine, dispatch, probs = _route(p, x, top_k)
     frac_tokens = torch.mean(dispatch, dim=(0, 1)) / top_k  # (E,)
     frac_probs = torch.mean(probs, dim=(0, 1))  # (E,)
-    aux = num_experts * torch.sum(frac_tokens * frac_probs)
-    return combine, dispatch, aux
+    return combine, dispatch, _aux(frac_tokens, frac_probs, probs.shape[-1])
 
 
 def apply_moe(p: dict, x: torch.Tensor, *, top_k: int, act: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (b, s, d) -> (y, aux_loss), by the reference's dense dispatch."""
+    """x: (b, s, d) -> (y, aux_loss), by the reference's dense dispatch.
+
+    On a DTensor, routing and the experts run on each rank's tokens (batch
+    and sequence stay sharded, the expert weights are gathered): top-k
+    runs along the expert dim, which no rank splits; the aux loss takes
+    the per-expert fractions' means over all shards."""
+    if isinstance(x, DTensor):
+        xs = keep_only(x, (0, 1))
+        xl = xs.to_local()
+        pl = full_local(p, xs)
+        combine, dispatch, probs = _route(pl, xl, top_k)
+        y = _experts(pl, xl, combine, dispatch, act)
+        frac_tokens = shard_mean(torch.mean(dispatch, dim=(0, 1)), xs, (0, 1)) / top_k
+        frac_probs = shard_mean(torch.mean(probs, dim=(0, 1)), xs, (0, 1))
+        aux = replicated(_aux(frac_tokens, frac_probs, probs.shape[-1]).float(), xs.device_mesh)
+        return shd(wrap_like(y, xs), "batch", "seq", None), aux
     combine, dispatch, aux = router_probs(p, x, top_k)
+    return _experts(p, x, combine, dispatch, act), aux.float()
+
+
+def _experts(p: dict, x, combine, dispatch, act: str):
     # Dispatch: (E, b, s, d) buffers.
     expert_in = torch.einsum("bse,bsd->ebsd", dispatch.to(x.dtype), x)
+    expert_in = shd(expert_in, "expert_act", "batch", None, None)
     h = activation(act)(torch.einsum("ebsd,edf->ebsf", expert_in, p["wg"]))
     h = h * torch.einsum("ebsd,edf->ebsf", expert_in, p["wi"])
+    h = shd(h, "expert_act", "batch", None, None)
     expert_out = torch.einsum("ebsf,efd->ebsd", h, p["wo"])
+    expert_out = shd(expert_out, "expert_act", "batch", None, None)
     y = torch.einsum("ebsd,bse->bsd", expert_out, combine.to(x.dtype))
-    return y, aux.float()
+    return shd(y, "batch", "seq", None)
 
 
 def apply_moe_capacity(
@@ -88,10 +122,11 @@ def apply_moe_capacity(
     gates = (combine * dispatch).reshape(b, nb, bs, E)
     topv, topi = topk_stable(gates.transpose(2, 3), cap)  # (b, nb, E, C) block-local ids
     keep = (topv > 0.0).to(x.dtype)
-    xb = x.reshape(b, nb, bs, d)
+    xb = shd(x.reshape(b, nb, bs, d), "batch", "seq", None, None)
     bi = torch.arange(b, device=x.device)[:, None, None, None]
     ni = torch.arange(nb, device=x.device)[None, :, None, None]
     xin = xb[bi, ni, topi] * keep[..., None]  # gather within blocks: (b, nb, E, C, d)
+    xin = shd(xin, "batch", "seq", "expert_act", None, None)
     h = activation(act)(torch.einsum("bnecd,edf->bnecf", xin, p["wg"]))
     h = h * torch.einsum("bnecd,edf->bnecf", xin, p["wi"])
     out = torch.einsum("bnecf,efd->bnecd", h, p["wo"])
@@ -99,5 +134,5 @@ def apply_moe_capacity(
     # scatter-add back inside each block
     y = torch.zeros((b, nb, bs, d), dtype=x.dtype, device=x.device)
     y = y.index_put((bi, ni, topi), out, accumulate=True)
-    return y.reshape(b, s, d), aux.float()
+    return shd(y.reshape(b, s, d), "batch", "seq", None), aux.float()
 

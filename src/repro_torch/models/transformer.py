@@ -31,6 +31,7 @@ from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import (
+    TensorSpec,
     apply_embed,
     apply_mlp,
     apply_norm,
@@ -41,6 +42,8 @@ from repro_torch.models.layers import (
     init_norm,
     softcap,
 )
+from repro_torch.parallel.shards import take_rows
+from repro_torch.parallel.sharding import shd
 
 
 REMAT_POLICIES = ("none", "full", "dots")
@@ -160,17 +163,19 @@ def apply_block(p: dict, x, kind: str, cfg: ModelConfig, positions):
     x = x + mix
     h = apply_norm(p["norm2"], x, cfg.norm_type)
     y, aux = _apply_ffn(p, h, cfg)
-    return x + y, aux
+    return shd(x + y, "batch", "seq", "embed_act"), aux
 
 
-def apply_block_decode(p, x, kind: str, cfg: ModelConfig, positions, index: int, cache):
+def apply_block_decode(p, x, kind: str, cfg: ModelConfig, positions, index: int, cache,
+                       long_context: bool = False):
     """One-token block step.  ``cache`` is the block's slice of the decode
     cache, updated in place: an attention layer writes its new key and
     value, a recurrent layer (Mamba, mLSTM, sLSTM) overwrites its state."""
     h = apply_norm(p["norm1"], x, cfg.norm_type)
     if kind.startswith("attn"):
         mix, _ = attn_lib.apply_attention_decode(
-            p["attn"], h, cache, index, positions=positions, **_mixer_kwargs(cfg, kind))
+            p["attn"], h, cache, index, positions=positions, long_context=long_context,
+            **_mixer_kwargs(cfg, kind))
         state = None
     elif kind == "mamba":
         mix, state = mamba_lib.apply_mamba_decode(p["mamba"], h, cache, d_state=cfg.mamba_d_state)
@@ -276,9 +281,9 @@ def embed_inputs(params, cfg: ModelConfig, batch: dict):
             pos = torch.arange(x.shape[1], device=x.device)[None]
         if pos.dim() == 3:
             pos = pos[..., 0]
-        pe = params["pos_embed"]["table"][pos.long()]
+        pe = take_rows(params["pos_embed"]["table"], pos.long())
         x = x + pe.expand(x.shape).to(x.dtype)
-    return x
+    return shd(x, "batch", "seq", "embed_act")
 
 
 def lm_forward(params: dict, batch: dict, cfg: ModelConfig, *,
@@ -347,11 +352,33 @@ def _block_cache_spec(cfg: ModelConfig, kind: str, batch: int, max_len: int) -> 
     raise ValueError(kind)
 
 
-def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    """{'b<i>': {name: (shape, dtype)}} with the leading group dim."""
-    return {f"b{i}": {name: ((cfg.num_groups, *shape), dt) for name, (shape, dt)
-                      in _block_cache_spec(cfg, kind, batch, max_len).items()}
-            for i, kind in enumerate(cfg.block_pattern)}
+def _block_cache_pspec(kind: str, long: bool) -> dict:
+    """Logical pspecs of one block's cache leaves (the reference's): keys
+    and values (batch on 'dp_batch', sequence on 'kv_seq'; long-context:
+    no batch axis, sequence on 'kv_long'), recurrent states likewise."""
+    if kind.startswith("attn"):
+        ps = (None if long else "dp_batch", "kv_long" if long else "kv_seq", None, None)
+        return {"k": ps, "v": ps}
+    if kind == "mamba":
+        return mamba_lib.mamba_state_pspecs(long)
+    if kind == "mlstm":
+        return xlstm_lib.mlstm_state_pspecs(long)
+    if kind == "slstm":
+        return xlstm_lib.slstm_state_pspecs(long)
+    raise ValueError(kind)
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int, long_context: bool = False):
+    """(specs, logical pspecs) of the decode cache: {'b<i>': {name:
+    TensorSpec}} with the leading group dim, and the same tree of logical
+    axis names ('layers' first)."""
+    specs, pspecs = {}, {}
+    for i, kind in enumerate(cfg.block_pattern):
+        specs[f"b{i}"] = {name: TensorSpec((cfg.num_groups, *shape), dt) for name, (shape, dt)
+                          in _block_cache_spec(cfg, kind, batch, max_len).items()}
+        pspecs[f"b{i}"] = {name: ("layers", *ps)
+                           for name, ps in _block_cache_pspec(kind, long_context).items()}
+    return specs, pspecs
 
 
 def zeros_like_specs(specs: dict, device) -> dict:
@@ -362,12 +389,14 @@ def zeros_like_specs(specs: dict, device) -> dict:
     return torch.zeros(shape, dtype=dt, device=device)
 
 
-def lm_decode_step(params: dict, cache: dict, batch: dict, cfg: ModelConfig):
+def lm_decode_step(params: dict, cache: dict, batch: dict, cfg: ModelConfig, *,
+                   long_context: bool = False):
     """One-token decode; batch = {'token': (b,) | 'embeds': (b, 1, d),
     'index': int, optionally 'positions': (b, 1) or (b, 1, 3)}.  The
     positions feed the rope (default: ``index``); the cache slot and the
     mask use ``index``.  Returns (logits (b, vocab), cache); the cache is
-    updated in place."""
+    updated in place.  ``long_context`` changes only the sharding of a
+    DTensor cache (its pspecs), as in the reference."""
     index = int(batch["index"])
     b = (batch["embeds"] if "embeds" in batch else batch["token"]).shape[0]
     dev = params["embed"]["table"].device
@@ -386,7 +415,7 @@ def lm_decode_step(params: dict, cache: dict, batch: dict, cfg: ModelConfig):
         for i, kind in enumerate(cfg.block_pattern):
             blk = f"b{i}"
             gc = {name: c[g] for name, c in cache[blk].items()}  # views into the stack
-            x = apply_block_decode(gp[blk], x, kind, cfg, positions, index, gc)
+            x = apply_block_decode(gp[blk], x, kind, cfg, positions, index, gc, long_context)
     x = apply_norm(params["final_norm"], x, cfg.norm_type)
     logits = softcap(apply_unembed(_unembed_table(params, cfg), x), cfg.logit_softcap)
     return logits[:, 0], cache

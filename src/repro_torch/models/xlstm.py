@@ -22,10 +22,15 @@ A decode state is a dict: mLSTM {'C', 'n', 'm'} (the JAX package's tuple
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import activation, truncated_normal
+from repro_torch.parallel.compat import DTensor
+from repro_torch.parallel.shards import on_shards
+from repro_torch.parallel.sharding import shd
 
 CHUNK = 256
 NEG = -1e30
@@ -115,21 +120,23 @@ def _mlstm_zero_carry(b: int, H: int, dh: int, device):
             torch.full((b, H), -torch.inf, device=device))
 
 
-def mlstm_cell(q, k, v, i_raw, logf, carry=None, chunk: int = CHUNK):
+def mlstm_cell(q, k, v, i_raw, logf, carry=None, chunk: Optional[int] = None):
     """Chunk-parallel mLSTM over a full sequence in chunks of ``min(chunk,
-    s)`` tokens, which must divide ``s`` (as the JAX package asserts).
+    s)`` tokens (default ``CHUNK``), which must divide ``s`` (as the JAX
+    package asserts).
     q,k,v: (b,s,H,dh); i_raw/logf: (b,s,H) f32.  Returns (h (b,s,H,dh)
     f32, carry)."""
     b, s, H, dh = q.shape
     if carry is None:
         carry = _mlstm_zero_carry(b, H, dh, q.device)
-    l = min(chunk, s)
+    l = min(chunk or CHUNK, s)
     if s % l:
         raise ValueError(f"mlstm_cell: {s} tokens are not a whole number of {l}-token chunks")
     hs = []
-    for c in range(s // l):
-        t = slice(c * l, (c + 1) * l)
-        carry, h = _mlstm_chunk(carry, q[:, t], k[:, t], v[:, t], i_raw[:, t], logf[:, t])
+    # split, not a slice per chunk: a slice's backward writes its gradient
+    # into zeros of the whole sequence, once per chunk
+    for qc, kc, vc, ic, fc in zip(*(a.split(l, dim=1) for a in (q, k, v, i_raw, logf))):
+        carry, h = _mlstm_chunk(carry, qc, kc, vc, ic, fc)
         hs.append(h)
     return torch.cat(hs, dim=1), carry
 
@@ -161,8 +168,15 @@ def mlstm_cell_recurrent(q, k, v, i_raw, logf, carry=None):
 def apply_mlstm(p: dict, x: torch.Tensor, num_heads: int, state=None, decode: bool = False):
     """Full mLSTM block. x: (b, s, d) -> (b, s, d); with ``decode``, the
     recurrent form from ``state`` ({'C', 'n', 'm'}), returning (out, new
-    state)."""
+    state).  On a DTensor, per batch shard with the sequence gathered
+    (``parallel/shards.on_shards``), the state placed as x."""
+    if isinstance(x, DTensor):
+        out = on_shards(lambda xl, pl, st: apply_mlstm(pl, xl, num_heads, state=st,
+                                                       decode=decode), x, p, state, batched=(1,))
+        return (shd(out[0], "batch", "seq", None), out[1]) if decode else shd(
+            out, "batch", "seq", None)
     xi, z = torch.chunk(x @ p["w_up"], 2, dim=-1)
+    xi = shd(xi, "batch", "seq", None)
     q, k, v, i_raw, logf = _mlstm_qkvif(p, xi)
     if decode:
         carry = (state["C"], state["n"], state["m"])
@@ -172,8 +186,16 @@ def apply_mlstm(p: dict, x: torch.Tensor, num_heads: int, state=None, decode: bo
         h, _ = mlstm_cell(q, k, v, i_raw, logf, carry=state)
     b, s, H, dh = h.shape
     hflat = h.reshape(b, s, H * dh).to(x.dtype) + xi * p["skip"]
-    out = (hflat * F.silu(z)) @ p["w_down"]
+    out = shd((hflat * F.silu(z)) @ p["w_down"], "batch", "seq", None)
     return (out, state) if decode else out
+
+
+def mlstm_state_pspecs(long_context: bool = False) -> dict:
+    """Logical pspecs of ``mlstm_state_spec``'s leaves (the reference's,
+    whose tuple (C, n, m) the port keeps as a dict)."""
+    ax = "kv_long" if long_context else "model"
+    b = None if long_context else "dp_batch"
+    return {"C": (b, None, ax, None), "n": (b, None, ax), "m": (b, None)}
 
 
 def mlstm_state_spec(batch: int, d: int, num_heads: int) -> dict:
@@ -212,7 +234,9 @@ def _slstm_scan(p, x, num_heads: int, state=None):
     if state is None:
         z = torch.zeros((b, d), device=x.device)
         state = {"c": z, "n": z + 1e-6, "h": z, "m": z}
-    pre = {g: x @ p[f"w{g}"] + p[f"b{g}"] for g in "ifzo"}  # (b,s,d) each
+    # (b, d) per token; unbind, not x[:, t]: a slice's backward writes its
+    # gradient into zeros of the whole sequence, once per token
+    pre = {g: (x @ p[f"w{g}"] + p[f"b{g}"]).unbind(1) for g in "ifzo"}
 
     def rmul(h, r):  # block-diagonal per-head recurrent matmul
         return torch.einsum("bhk,hkj->bhj", h.reshape(b, num_heads, dh), r).reshape(b, d)
@@ -221,10 +245,10 @@ def _slstm_scan(p, x, num_heads: int, state=None):
     hs = []
     for t in range(s):
         h_prev = h.to(x.dtype)
-        it = (pre["i"][:, t] + rmul(h_prev, p["ri"])).float()
-        ft = (pre["f"][:, t] + rmul(h_prev, p["rf"])).float()
-        zt = torch.tanh((pre["z"][:, t] + rmul(h_prev, p["rz"])).float())
-        ot = torch.sigmoid((pre["o"][:, t] + rmul(h_prev, p["ro"])).float())
+        it = (pre["i"][t] + rmul(h_prev, p["ri"])).float()
+        ft = (pre["f"][t] + rmul(h_prev, p["rf"])).float()
+        zt = torch.tanh((pre["z"][t] + rmul(h_prev, p["rz"])).float())
+        ot = torch.sigmoid((pre["o"][t] + rmul(h_prev, p["ro"])).float())
         logf = F.logsigmoid(ft)
         m2 = torch.maximum(logf + m, it)
         i_ = torch.exp(it - m2)
@@ -241,11 +265,20 @@ def apply_slstm(p: dict, x: torch.Tensor, num_heads: int, act: str = "gelu", sta
                 decode: bool = False):
     """sLSTM block: the scan, then its gated FFN (pf 4/3).  The blocks call
     it with the default ``act``, "gelu", whatever the config's ``act`` is,
-    as the JAX package does."""
+    as the JAX package does.  On a DTensor, per batch shard as
+    ``apply_mlstm``."""
+    if isinstance(x, DTensor):
+        return on_shards(lambda xl, pl, st: apply_slstm(pl, xl, num_heads, act, state=st,
+                                                        decode=decode), x, p, state, batched=(1,))
     h, state = _slstm_scan(p, x, num_heads, state=state)
     y = activation(act)(h @ p["ffn_wg"]) * (h @ p["ffn_wi"])
     out = y @ p["ffn_wo"]
     return (out, state) if decode else out
+
+
+def slstm_state_pspecs(long_context: bool = False) -> dict:
+    ps = (None if long_context else "dp_batch", "kv_long" if long_context else "model")
+    return {name: ps for name in "cnhm"}
 
 
 def slstm_state_spec(batch: int, d: int) -> dict:

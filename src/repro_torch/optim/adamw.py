@@ -9,6 +9,10 @@ the GRNCKPT1 manifests of a training state match across the packages.
 Every scalar of the update is a float32 tensor on the params' device (the
 reference computes ``lr``, ``b1 ** step`` and ``b2 ** step`` in float32),
 and every division is tensor by tensor (IEEE on the card too).
+
+On DTensor params (a mesh) the state mirrors their placements: m, v and
+master are made with ``zeros_like`` / ``to`` of each param, and ``step``
+is replicated over the params' mesh.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.convert import flatten_with_paths, tree_map, tree_map_with_path
+from repro_torch.parallel.compat import DTensor, Replicate, distribute_tensor
 
 
 @dataclass(frozen=True)
@@ -30,16 +35,17 @@ class AdamWConfig:
     clip_norm: float = 1.0
 
 
-def _device(tree) -> torch.device:
-    return flatten_with_paths(tree)[0][1].device
-
-
 def init_opt_state(params) -> Dict[str, Any]:
+    leaf = flatten_with_paths(params)[0][1]
+    step = torch.zeros((), dtype=torch.int32, device=leaf.device)
+    if isinstance(leaf, DTensor):
+        mesh = leaf.device_mesh
+        step = distribute_tensor(step, mesh, (Replicate(),) * mesh.ndim, src_data_rank=None)
     return {
-        "step": torch.zeros((), dtype=torch.int32, device=_device(params)),
+        "step": step,
         "master": tree_map(lambda x: x.detach().to(torch.float32, copy=True), params),
-        "m": tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32, device=x.device), params),
-        "v": tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32, device=x.device), params),
+        "m": tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32), params),
+        "v": tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32), params),
     }
 
 

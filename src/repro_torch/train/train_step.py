@@ -4,7 +4,9 @@ grads -> (optional int8 compression of the grads) -> AdamW.  Functions of
 eager PyTorch, with autograd in place of ``jax.value_and_grad``.
 
 The batch may hold numpy arrays (``SyntheticLMDataset.batch``) or tensors;
-it is moved to the params' device.
+it is moved to the params' device.  On DTensor params (a mesh) the step
+runs on DTensors: a plain batch counts as replicated, a DTensor batch
+(``SyntheticLMDataset.sharded_batch``) keeps its placements.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamWConfig, apply_updates
 from repro_torch.optim.grad_compress import compress_roundtrip
 from repro_torch.optim.schedule import cosine_schedule
+from repro_torch.parallel.shards import mesh_scope
 
 
 @dataclass(frozen=True)
@@ -45,7 +48,7 @@ def value_and_grad(model: Model, params, batch, remat_policy: str):
     leaf the loss does not reach (the embedding table when the batch holds
     'embeds') gets a zero gradient, as JAX gives it."""
     live = tree_map(lambda x: x.detach().requires_grad_(True), params)
-    with torch.enable_grad():
+    with torch.enable_grad(), mesh_scope(params):  # remat reruns the forward in the backward
         loss, metrics = model.loss(live, batch, remat_policy=remat_policy)
         paths, leaves = zip(*flatten_with_paths(live))
         got = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -57,6 +60,10 @@ def value_and_grad(model: Model, params, batch, remat_policy: str):
 
 def make_train_step(model: Model, cfg: TrainStepConfig) -> Callable:
     def train_step(params, opt_state, batch):
+        with mesh_scope(params):
+            return _train_step(params, opt_state, batch)
+
+    def _train_step(params, opt_state, batch):
         dev = _params_device(params)
         batch = _to_device(batch, dev)
         if cfg.microbatch and cfg.microbatch > 1:

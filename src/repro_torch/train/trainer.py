@@ -69,12 +69,15 @@ class Trainer:
     def state_tree(self):
         return {"params": self.params, "opt": self.opt_state, "step": np.int32(self.step)}
 
-    def restore(self) -> int:
+    def restore(self, shardings=None) -> int:
         """Resume from the newest checkpoint onto the trainer's device (crash
-        restart or migration arrival).  Returns the restored step."""
+        restart or migration arrival); with ``shardings`` (a
+        ``NamedSharding`` tree like ``state_tree()``'s, e.g. of
+        ``param_pspecs``), onto that mesh: the elastic restore, after which
+        the trainer steps on DTensors.  Returns the restored step."""
         if self.params is None:
             self.init_state()
-        tree, _ = self.ckpt.restore(self.state_tree(), device=self.device)
+        tree, _ = self.ckpt.restore(self.state_tree(), device=self.device, shardings=shardings)
         self.params = tree["params"]
         self.opt_state = tree["opt"]
         self.step = int(tree["step"])

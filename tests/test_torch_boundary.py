@@ -29,6 +29,10 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert {{"repro_torch.models.mamba", "repro_torch.models.xlstm", "repro_torch.models.encdec"}} <= set(names)
+assert {{"repro_torch.parallel.sharding", "repro_torch.parallel.strategies", "repro_torch.parallel.compat",
+        "repro_torch.launch.mesh", "repro_torch.launch.dryrun"}} <= set(names)
+import torch.distributed as dist
+assert not dist.is_initialized(), "importing the port initialized a process group"
 """
 
 

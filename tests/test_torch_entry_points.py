@@ -10,6 +10,7 @@ is run to the end of its own asserts instead.
 """
 import os
 import runpy
+import subprocess
 import sys
 
 import jax
@@ -81,9 +82,19 @@ def test_dryrun_plan_matches_reference(argv, ref_dryrun, monkeypatch, capsys):
     assert "Migrate(" in got
 
 
-def test_dryrun_without_plan_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        port_dryrun.main(["--arch", "micro-lm", "--device", "cpu"])
+def test_dryrun_without_plan_lowers_a_cell(tmp_path):
+    """``main`` without --plan lowers a cell: whisper-tiny's decode_32k on
+    the 16 x 16 fake world, traced on the CPU, in its own process (the fake
+    world is process-global)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(EXAMPLES), "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "whisper-tiny", "--shape",
+         "decode_32k", "--mesh", "single", "--device", "cpu", "--out", str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "[dryrun] whisper-tiny" in out.stdout and " single OK t_comp=" in out.stdout
+    assert out.stdout.strip().endswith("done: 1 OK, 0 SKIP, 0 FAIL")
+    assert os.path.exists(tmp_path / "baseline_single_whisper-tiny_decode_32k.json")
 
 
 def test_quickstart_matches_reference(monkeypatch, capsys):

@@ -184,9 +184,28 @@ def test_compress_roundtrip_bit_equal():
     assert not any(ops.launch_counts().values())
 
 
-def test_crosspod_allgather_raises_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        crosspod_allgather_mean_int8({"x": torch.zeros(512)})
+def test_crosspod_allgather_one_pod_equals_compress_roundtrip(tmp_path):
+    """On a (1, 1, 1) ('pod', 'data', 'model') mesh over a one-rank gloo
+    world, the int8 all-gather mean is the round trip itself, bit for bit;
+    a leaf under one block takes the all-reduce mean (itself)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    rng = np.random.default_rng(11)
+    tree = {"w": torch.from_numpy((rng.standard_normal((7, 300)) * 3).astype(np.float32)),
+            "b": torch.from_numpy(rng.standard_normal(100).astype(np.float32))}
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        got = crosspod_allgather_mean_int8(tree, make_mesh((1, 1, 1), ("pod", "data", "model"), "cpu"))
+    finally:
+        dist.destroy_process_group()
+    want = compress_roundtrip(tree)
+    for k in tree:
+        assert torch.equal(got[k], want[k]), k
+    assert not torch.equal(got["w"], tree["w"])  # quantized
+    assert torch.equal(got["b"], tree["b"])
 
 
 def test_cross_entropy_masked_matches_reference():
