@@ -27,11 +27,14 @@ Phases, each of which raises on failure:
                 100-site x 10,000-job fleet-compiled week, and the
                 1,000-run batched sweep (run_cells_batched).  Their
                 summaries must equal the same runs with device="cpu" (run
-                first; they also supply real decide batches for the K4
-                check in phase 3) and the fleet week the recorded
+                first, in a spawned process beside the build; they also
+                supply real decide batches for the K4 check in phase 3)
+                and the fleet week the recorded
                 benchmarks/BENCH_quick.json row;
   7. profile -- device busy share and top kernels of prefill and decode,
-                and of a profiled rerun of each fleet path;
+                and of a profiled rerun of each fleet path (cut in depth:
+                the fleet over 2 days with 570 of its 10,000 jobs, the
+                sweep over 100 of its 1,000 runs);
   8. train   -- the training slice at micro-lm's full width: the attention
                 backward kernel against its plain version in float32 and
                 in bf16 (and timed); two train steps on the card against
@@ -42,7 +45,13 @@ Phases, each of which raises on failure:
                 preempted, the gate reads the measured bytes, migrate_job,
                 site B restores onto the card and trains to step 24) in full
                 mode against an unmigrated run, and in int8 mode with
-                int8-compressed gradients; launch.train.main on the default
+                int8-compressed gradients (its checkpoints at preemption
+                and at the end only); remat "none" and "dots" against
+                "full" (loss and every gradient, bit-identical), a step of
+                two micro-batches against one batch, and a delta-int8
+                lifecycle (a full save, a delta save, migrate_job, a
+                restore with an explicit base= bit-identical to
+                device="cpu"'s); launch.train.main on the default
                 device; each run with the launch counters set to 0 just
                 before it and held to exact counts just after; the step's
                 device time, busy share and top device ops;
@@ -100,7 +109,11 @@ Phases, each of which raises on failure:
                 depth; each model freed and the card's memory checked; then
                 K1 and its backward at the four layer shapes (GQA groups 5,
                 1, 4 and 7) with controls for a wrong head mapping or causal
-                diagonal; every run counted as derived.
+                diagonal; every run counted as derived; then the
+                launchers at full width on their default device, each
+                drawing its weights on the card: launch.serve --arch
+                qwen2.5-32b (the draw's seconds, the peak memory, tokens/s)
+                and launch.train --arch qwen3-1.7b for 2 steps, counted;
  13. archs3 -- jamba-v0.1-52b (16 of its 32 layers: 103 GB do not fit),
                 xlstm-1.3b and whisper-tiny in bf16 at full width, each
                 drawn once on the card from seed 0 and freed before the
@@ -133,7 +146,11 @@ Phases, each of which raises on failure:
                 2 x 512 under the baseline rules and a greedy decode under
                 decode-tp on DTensors, bit-identical to the same calls
                 unsharded; crosspod_allgather_mean_int8 on a (1, 1, 1) pod
-                mesh bit-identical to compress_roundtrip; sharded_batch;
+                mesh bit-identical to compress_roundtrip; jamba's Mamba
+                block b0 and attention block b4 and xlstm's first mLSTM
+                block in bf16, forward and backward over 1 x 4,096 tokens
+                (train_4k's sequence, 16 chunks) on the mesh, bit-identical
+                to unsharded, with their peak memory; sharded_batch;
                 and one dry-run cell (qwen3-1.7b decode_32k on the 16 x 16
                 fake world) in its own process: OK, its peak under the
                 card's memory, its roofline terms printed; every run
@@ -201,6 +218,7 @@ from repro_torch.launch.mesh import make_local_mesh, make_mesh  # noqa: E402
 from repro_torch.optim.grad_compress import (  # noqa: E402
     compress_roundtrip, crosspod_allgather_mean_int8)
 from repro_torch.parallel.compat import DTensor, distribute_tensor  # noqa: E402
+from repro_torch.parallel.shards import mesh_scope  # noqa: E402
 from repro_torch.parallel.sharding import (  # noqa: E402
     force_mesh_axes, logical_spec, named_shardings, param_pspecs, placements, use_rules)
 from repro_torch.parallel.strategies import get_strategy  # noqa: E402
@@ -297,6 +315,10 @@ BWD_FLOPS_PER_PAIR_HD = 10
 # step 24.
 TRAIN_BATCH, TRAIN_SEQ = 8, 512
 TRAIN_STEPS, TRAIN_PREEMPT, TRAIN_SAVE_EVERY = 24, 12, 4
+# The int8 lifecycle saves at preemption and at the end only: each int8 save
+# of the training state takes ~6.6 s of zlib on the H100 machine, and every
+# fourth step's one added ~26 s to the phase (PR 23).
+TRAIN_INT8_SAVE_EVERY = TRAIN_STEPS + 1
 TRAIN_LR, TRAIN_WARMUP = 3e-4, 3
 # Card against CPU: 2 steps on 2 x 512 tokens.  Step 1 sees the same
 # params: the loss is one float32 reduction over 1,024 tokens of logits
@@ -323,6 +345,15 @@ CARD_CPU_BF16_TOL = 2e-2
 # exact and the card runs the same kernels on the same inputs, so equal;
 # 1e-6 as tests/test_system.py::test_full_migration_cycle.
 MIGRATION_TOL = 1e-6
+# remat "none" / "dots" against "full": the same kernels on the same inputs
+# (a recompute reruns them, "dots" saves the GEMMs' outputs), so equal
+# bits are expected; else each gradient leaf within 1e-6 of its max.
+REMAT_TOL = 1e-6
+# a step of 2 micro-batches of 4 x 512 against one batch of 8 x 512: the
+# sums of the loss and the gradients split in two (card-vs-CPU tolerances)
+MICRO_BATCHES = 2
+# the delta-int8 lifecycle: a full save at step 4, the delta save at 8
+DELTA_STEPS = 8
 
 KERNELS = {
     "flash_attention": dict(
@@ -364,6 +395,8 @@ SWEEP_BATCHED_SPEC = dict(
     scenarios=("paper-table6", "forecastable-brownouts"),
     policies=("feasibility-aware",), seeds=tuple(range(500)),
     overrides=dict(n_jobs=6, days=1, orch_dt_s=1800.0))
+PROFILE_FLEET_OVERRIDES = dict(days=2, n_jobs=570)
+PROFILE_SWEEP_SEEDS = 50
 BENCH_QUICK = os.path.join(HERE, "benchmarks", "BENCH_quick.json")
 # fleet-compiled digits the week must reproduce, rounded as benchmarks/run.py rounds them
 FLEET_DIGITS = (("grid_kwh", 1), ("renewable_kwh", 1), ("grid_gco2", 1), ("grid_cost", 2),
@@ -467,6 +500,10 @@ ARCH_FLASH_Q_SCALE, ARCH_FLASH_EDGE = 8.0, 6.0
 # full depth, but phi3.5-moe's 83.7 GB of bf16 weights do not fit the
 # card's 80 GB: its first 24 of 32 layers (62.9 GB).
 ARCHS2 = ("qwen2.5-32b", "qwen1.5-32b", "phi3.5-moe-42b-a6.6b", "qwen2-vl-7b")
+# the launchers at full width, after [archs2]: launch.serve (batch, prompt,
+# new tokens) and launch.train (steps of batch x seq tokens)
+LAUNCH_SERVE_ARCH, LAUNCH_SERVE_SHAPE = "qwen2.5-32b", (2, 8, 8)
+LAUNCH_TRAIN_ARCH, LAUNCH_TRAIN_STEPS, LAUNCH_TRAIN_SHAPE = "qwen3-1.7b", 2, (1, 512)
 ARCH2_LAYERS = {"phi3.5-moe-42b-a6.6b": 24}
 # The float32 decode check runs on a float32 copy of the first
 # ARCH2_F32_GROUPS layer groups (a float32 copy of a 32 B model does not
@@ -808,8 +845,13 @@ def run_train_lifecycle(cfg, workdir, *, mode, grad_compress, device, batch=TRAI
     if restored != preempt:
         raise RuntimeError(f"site B restored step {restored}, expected {preempt}")
     state_b0 = b.state_tree()
-    status_b, run_b_s = segment("site B", b.run, lambda: train_launches(
-        cfg, b, steps=steps - preempt, saves=saves_in(preempt, steps, save_every)))
+    # Site B's save at the end of its budget is never read (the checks read
+    # its params), so its budget lies one step beyond the run, as the
+    # unmigrated run's does: it keeps its periodic saves only.
+    b.cfg = replace(b.cfg, total_steps=steps + 1)
+    status_b, run_b_s = segment("site B", lambda: b.run(max_steps=steps - preempt),
+                                lambda: train_launches(cfg, b, steps=steps - preempt,
+                                                       saves=saves_in(preempt, steps, save_every) - 1))
     if status_b["status"] != "done" or status_b["step"] != steps:
         raise RuntimeError(f"site B: {status_b}, expected done at step {steps}")
     return TrainResult(mode, grad_compress, a.history + b.history, a.state_tree(), state_b0,
@@ -878,6 +920,21 @@ def run_sweep_batched(device, seeds=SWEEP_BATCHED_SPEC["seeds"]):
 FLEET_PATHS = (("paper-table6 week", run_table6),
                ("fleet-compiled week", run_fleet_week),
                ("batched sweep", run_sweep_batched))
+
+
+def run_fleet_jobs(device):
+    return ClusterSimulator.from_scenario(
+        "forecastable-brownouts", "feasibility-aware",
+        overrides={**FLEET_COMPILED_OVERRIDES, **PROFILE_FLEET_OVERRIDES}, device=device).run()
+
+
+# The profiled and cProfiled reruns read busy shares and the host split, not
+# digits: the same paths cut in depth (the fleet over 2 days with 570 of its
+# jobs, the sweep over a tenth of its runs).
+PROFILE_PATHS = (("paper-table6 week", run_table6),
+                 ("fleet-compiled, 2 days, 570 jobs", run_fleet_jobs),
+                 ("batched sweep, 100 runs", lambda device: run_sweep_batched(
+                     device, seeds=SWEEP_BATCHED_SPEC["seeds"][:PROFILE_SWEEP_SEEDS])))
 
 
 def path_stats(out) -> dict:
@@ -1096,6 +1153,18 @@ def run_cpu_paths() -> tuple:
             f"{st['decide_s']:.4f} over {st['ticks']} ticks; largest decide batch "
             f"{captured[name][0].bw.shape}")
     return cpu, captured
+
+
+def start_cpu_paths():
+    """run_cpu_paths in a spawned process of its own, started before the
+    build: its host-only weeks run beside nvcc and the kernel checks.
+    Returns the future of (cpu, captured), and the pool to shut down."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    return pool.submit(run_cpu_paths), pool
 
 
 def check_spawn_pool(dev) -> None:
@@ -1424,8 +1493,9 @@ def _profiled(fn, *, host_ops: bool = True):
 def phase_profile_fleet(dev) -> None:
     """Device busy share of each orchestration path, from a profiled rerun
     (its launches are not counted): over the run's wall, and over the
-    decide calls, the decide-heavy stretch of the run."""
-    for name, fn in FLEET_PATHS:
+    decide calls, the decide-heavy stretch of the run.  The paths are cut
+    in depth (PROFILE_PATHS)."""
+    for name, fn in PROFILE_PATHS:
         out, wall_us, events = _profiled(lambda: fn(dev))
         if not events:
             log(f"[profile] {name}: device time not measured (the profiler saw no device events)")
@@ -1457,11 +1527,12 @@ def phase_host_split(dev) -> None:
     """Where the host time of a decide tick goes on the card: a cProfile
     rerun of the two simulator weeks, cumulative time of each stage of the
     decide path.  cProfile slows Python code more than native code, so the
-    shares, not the seconds, are what to read."""
+    shares, not the seconds, are what to read.  The fleet week is cut in
+    depth (PROFILE_PATHS)."""
     import cProfile
     import pstats
 
-    for name, fn in FLEET_PATHS[:2]:
+    for name, fn in PROFILE_PATHS[:2]:
         prof = cProfile.Profile()
         prof.enable()
         fn(dev)
@@ -1600,6 +1671,15 @@ def check_bf16_step(cfg, params, dev, batch, what: str, *, moe_routes=None) -> d
     (a list), the card's step records its MoE layer's expert choice there
     and the CPU side routes every token as the card did (expert_choice).
     Returns the launches."""
+    card = bf16_card_step(cfg, params, dev, batch, what, moe_routes=moe_routes)
+    bf16_cpu_check(cfg, tree_map(lambda x: x.cpu(), params), batch, what, *card)
+    return card[2]
+
+
+def bf16_card_step(cfg, params, dev, batch, what: str, *, moe_routes=None):
+    """The card half of check_bf16_step: (the gradients on the host, the
+    step's metrics, its launches (held as derived), the forced expert
+    choice or None, each param leaf's dtype)."""
     rec = [] if moe_routes is None else moe_routes
     with expert_choice(rec) if moe_routes is not None else contextlib.nullcontext():
         g_card, (m_card,), counts, _ = run_train_steps(cfg, params, [batch], device=dev)
@@ -1609,17 +1689,25 @@ def check_bf16_step(cfg, params, dev, batch, what: str, *, moe_routes=None) -> d
         if any(not torch.equal(r, force) for r in rec):
             raise RuntimeError(f"{what}: the card's step chose other experts in another MoE call "
                                "(one MoE layer expected)")
+    expect = step_launches(cfg, "full")
+    if counts != expect:
+        raise RuntimeError(f"{what} train step: launch counts {counts}, expected {expect}")
+    dtypes = {path: x.dtype for path, x in flatten_with_paths(params)}
+    return tree_map(lambda x: x.cpu(), g_card), m_card, counts, force, dtypes
+
+
+def bf16_cpu_check(cfg, host_params, batch, what: str, g_card, m_card, counts, force,
+                   dtypes) -> None:
+    """The CPU half of check_bf16_step, from the card half's results and
+    the params on the host."""
     t0 = time.perf_counter()
     # the CPU side: the step's loss, gradients and grad norm, without its
     # AdamW update (at full width the CPU's bf16 update costs seconds)
     with expert_choice([], force=force) if force is not None else contextlib.nullcontext():
-        (loss, _), g_cpu = value_and_grad(build_model(cfg), tree_map(lambda x: x.cpu(), params),
+        (loss, _), g_cpu = value_and_grad(build_model(cfg), host_params,
                                           {k: torch.from_numpy(v) for k, v in batch.items()}, "full")
     m_cpu = {"loss": float(loss), "grad_norm": float(global_norm(g_cpu))}
     cpu_s = time.perf_counter() - t0
-    expect = step_launches(cfg, "full")
-    if counts != expect:
-        raise RuntimeError(f"{what} train step: launch counts {counts}, expected {expect}")
     parts = []
     for key in ("loss", "grad_norm"):
         rel = abs(m_card[key] - m_cpu[key]) / abs(m_cpu[key])
@@ -1628,11 +1716,10 @@ def check_bf16_step(cfg, params, dev, batch, what: str, *, moe_routes=None) -> d
                                f"{m_cpu[key]}: relative {rel:.3e} beyond {CARD_CPU_BF16_TOL}")
         parts.append(f"{key} {m_card[key]:.6f} (rel {rel:.2e})")
     cpu_of = dict(flatten_with_paths(g_cpu))
-    params_of = dict(flatten_with_paths(params))
     worst, worst_path = 0.0, ""
     for path, g in flatten_with_paths(g_card):
         want = cpu_of[path].float()
-        if g.dtype != params_of[path].dtype or not bool(torch.isfinite(g).all()):
+        if g.dtype != dtypes[path] or not bool(torch.isfinite(g).all()):
             raise RuntimeError(f"{what} gradient {'/'.join(path)}: {g.dtype} or not finite")
         share = leaf_share(g, want, CARD_CPU_BF16_TOL)
         if not share <= 1.0:
@@ -1645,7 +1732,31 @@ def check_bf16_step(cfg, params, dev, batch, what: str, *, moe_routes=None) -> d
     log(f"{what}, card vs device='cpu', one step on {b} x {s} tokens (CPU {cpu_s:.1f} s{routed}): "
         f"{'; '.join(parts)}; first-step gradients within {CARD_CPU_BF16_TOL} x each leaf's max, "
         f"at most {100 * worst:.1f}% of it ({worst_path}); launches {counts}, as derived")
-    return counts
+
+
+class CpuSides:
+    """The CPU sides of card-vs-CPU checks, run one after another in a
+    thread while the card goes on with the next work; ``finish`` waits for
+    them and raises the first failure.  Only checks that touch no patched
+    global (no MoE routing: expert_choice patches moe.topk_stable) are
+    sent here."""
+
+    def __init__(self):
+        import concurrent.futures
+
+        self.pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        self.pending = []
+
+    def submit(self, fn) -> None:
+        self.pending.append(self.pool.submit(fn))
+
+    def finish(self) -> None:
+        pending, self.pending = self.pending, []
+        for fut in pending:
+            fut.result()
+
+
+CPU_SIDES = CpuSides()
 
 
 def leaf_share(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
@@ -1729,6 +1840,149 @@ def run_train_launcher(cfg, workdir) -> dict:
     return counts
 
 
+@contextlib.contextmanager
+def step_grads():
+    """The gradients every train step inside hands to AdamW
+    (``train_step.apply_updates``), in a list."""
+    from repro_torch.train import train_step as ts
+
+    seen, real = [], ts.apply_updates
+
+    def capture(params, grads, *args, **kw):
+        seen.append(grads)
+        return real(params, grads, *args, **kw)
+
+    ts.apply_updates = capture
+    try:
+        yield seen
+    finally:
+        ts.apply_updates = real
+
+
+def check_remat_and_microbatch(cfg, params, dev) -> dict:
+    """The training paths beside remat "full" and one batch, at the slice's
+    shape on the card, each counted: remat "none" and "dots", one step's
+    loss and every gradient against "full"'s (bit-identical, or each leaf
+    within REMAT_TOL of its max); a step of two micro-batches against the
+    one-batch step (loss CARD_CPU_LOSS_TOL[0] relative, the gradients
+    AdamW takes CARD_CPU_GRAD_TOL of each leaf's max).  Returns their
+    launches, summed."""
+    model = build_model(cfg)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH).batch(0).items()}
+    total = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    runs = {}
+    for policy in ("full", "none", "dots"):
+        ((loss, _), grads), counts, wall = counted(
+            lambda: value_and_grad(model, params, batch, policy))
+        if counts != step_launches(cfg, policy):
+            raise RuntimeError(f"remat {policy!r}: launch counts {counts}, expected "
+                               f"{step_launches(cfg, policy)}")
+        runs[policy] = (float(loss), dict(flatten_with_paths(grads)), wall, counts)
+        if policy != "full":
+            add(counts)
+    loss0, g0, _, _ = runs["full"]
+    parts = []
+    for policy in ("none", "dots"):
+        loss, grads, wall, counts = runs[policy]
+        same = loss == loss0 and all(torch.equal(grads[p], g) for p, g in g0.items())
+        if not same:
+            worst = max(float((grads[p] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                        for p, g in g0.items())
+            if not (abs(loss - loss0) <= REMAT_TOL * abs(loss0) and worst <= REMAT_TOL):
+                raise RuntimeError(f"remat {policy!r}: loss {loss} vs {loss0}, gradients up to "
+                                   f"{worst:.3e} of their max, beyond {REMAT_TOL}")
+        parts.append(f"{policy!r} ({wall:.2f} s, launches {counts}) "
+                     + ("bit-identical" if same else f"within {REMAT_TOL} of each leaf's max"))
+    log(f"[train] remat on {TRAIN_BATCH} x {TRAIN_SEQ} tokens, one step's loss and all "
+        f"{len(g0)} gradients against 'full' ({runs['full'][2]:.2f} s): " + "; ".join(parts))
+
+    step_cfg = dict(opt=AdamWConfig(lr=TRAIN_LR), total_steps=TRAIN_STEPS, warmup_steps=TRAIN_WARMUP)
+    out = {}
+    for micro in (0, MICRO_BATCHES):
+        step = make_train_step(model, TrainStepConfig(microbatch=micro, **step_cfg))
+        with step_grads() as grads:
+            (_, _, m), counts, wall = counted(lambda: step(params, init_opt_state(params), batch))
+        expect = {k: v * max(micro, 1) for k, v in step_launches(cfg, "full").items()}
+        if counts != expect:
+            raise RuntimeError(f"{micro} micro-batches: launch counts {counts}, expected {expect}")
+        out[micro] = (float(m["loss"]), dict(flatten_with_paths(grads[0])), wall, counts)
+    add(out[MICRO_BATCHES][3])
+    (l1, g1, w1, _), (l2, g2, w2, c2) = out[0], out[MICRO_BATCHES]
+    rel = abs(l2 - l1) / abs(l1)
+    worst = max(float((g2[p] - g).abs().max()) / (CARD_CPU_GRAD_TOL * grad_scale(p, g1))
+                for p, g in g1.items())
+    if not (rel <= CARD_CPU_LOSS_TOL[0] and worst <= 1.0):
+        raise RuntimeError(f"{MICRO_BATCHES} micro-batches vs one batch: loss rel {rel:.3e}, "
+                           f"gradients up to {100 * worst:.1f}% of {CARD_CPU_GRAD_TOL} x max")
+    log(f"[train] a step of {MICRO_BATCHES} micro-batches of {TRAIN_BATCH // MICRO_BATCHES} x "
+        f"{TRAIN_SEQ} ({w2:.2f} s) against one batch of {TRAIN_BATCH} ({w1:.2f} s): loss {l2:.6f} "
+        f"vs {l1:.6f} (rel {rel:.2e} of {CARD_CPU_LOSS_TOL[0]}); the gradients AdamW took each "
+        f"within {CARD_CPU_GRAD_TOL} x its leaf's max, at most {100 * worst:.2f}% of it; "
+        f"launches {c2}, as derived")
+    return total
+
+
+def run_delta_lifecycle(cfg, work, dev) -> dict:
+    """A delta-int8 training lifecycle through Trainer on the card: train
+    to DELTA_STEPS // 2, a full save, train on to DELTA_STEPS (the budget's
+    save, delta-int8 against the full one), migrate_job, and the site's
+    restore with an explicit base= (the full save's state: after a second
+    save a manager's own base is the newest state), counted; its leaves
+    bit-identical to a restore of the same bytes with device="cpu".
+    Returns the launches."""
+    half = DELTA_STEPS // 2
+    tr = make_trainer(cfg, os.path.join(work, "siteA"), steps=DELTA_STEPS,
+                      save_every=DELTA_STEPS + 1, mode="delta-int8", grad_compress=False,
+                      batch=TRAIN_BATCH, seq=TRAIN_SEQ, device=dev)
+    launches = {}
+
+    def segment(name, fn, expect):
+        out, got, wall = counted(fn)
+        if got != expect():
+            raise RuntimeError(f"[train] delta-int8 {name}: launch counts {got}, expected "
+                               f"{expect()}")
+        launches[name] = got
+        return out, wall
+
+    segment("steps 1-%d" % half, lambda: tr.run(max_steps=half),
+            lambda: train_launches(cfg, tr, steps=half))
+    full, full_s = segment("full save", lambda: tr.ckpt.save(half, tr.state_tree(), mode="full"),
+                           lambda: dict.fromkeys(ops.launch_counts(), 0))
+    status, run_s = segment(f"steps {half + 1}-{DELTA_STEPS} and the delta save",
+                            lambda: tr.run(max_steps=half),
+                            lambda: train_launches(cfg, tr, steps=half, saves=1))
+    delta = tr.ckpt.latest
+    if status["step"] != DELTA_STEPS or full.mode != "full" or delta.mode != "delta-int8":
+        raise RuntimeError(f"[train] delta-int8 lifecycle: {status}, saves {full.mode}, "
+                           f"{delta.mode}")
+    dst, _ = migrate_job(tr.ckpt, os.path.join(work, "siteB"), bandwidth_bps=BANDWIDTH_BPS,
+                         window_s=WINDOW_S)
+    like = tr.state_tree()
+    base, _ = tr.ckpt.restore(like, step=half, device="cpu")
+    base = params_to_numpy(base)
+    (got, _), restore_s = segment("restore", lambda: dst.restore(like, base=base, device=dev),
+                                  lambda: train_launches(cfg, tr, steps=0, restores=1))
+    want, _ = dst.restore(like, base=base, device="cpu")
+    n = same_leaves("[train] delta-int8 restore on the card vs device='cpu'", got, want)
+    log(f"[train] delta-int8 lifecycle: {half} steps, full save {full.nbytes} B "
+        f"({full_s:.3f} s), {half} more steps ({run_s:.2f} s) and the delta-int8 save "
+        f"{delta.nbytes} B, migrate_job, restore with base= the full save's state "
+        f"({restore_s:.3f} s): all {n} leaves bit-identical to device='cpu''s restore of the "
+        f"same bytes")
+    for name, got in launches.items():
+        log(f"[train]   delta-int8 {name}: launches {got}, as derived")
+    total = {}
+    for got in launches.values():
+        total = {k: total.get(k, 0) + v for k, v in got.items()}
+    return total
+
+
 # device op name fragments -> the training step's parts
 STEP_PARTS = (("K1 forward", ("flash_fwd",)), ("K1 backward", ("flash_bwd",)),
               ("GEMMs", ("gemm", "cutlass", "xmma", "cublas")), ("copies", ("Memcpy", "Memset")))
@@ -1791,11 +2045,16 @@ def phase_train(cfg, params, dev) -> dict:
     runs, summed."""
     check_card_vs_cpu(cfg, params, dev)
     total = check_bf16_train(cfg, params, dev)
+    for k, n in check_remat_and_microbatch(cfg, params, dev).items():
+        total[k] = total.get(k, 0) + n
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
-        for mode, gc, reference in (("full", False, True), ("int8", True, False)):
+        counts = run_delta_lifecycle(cfg, os.path.join(work, "delta"), dev)
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        for mode, gc, reference, save_every in (("full", False, True, TRAIN_SAVE_EVERY),
+                                                ("int8", True, False, TRAIN_INT8_SAVE_EVERY)):
             d = os.path.join(work, mode)
             res = run_train_lifecycle(cfg, d, mode=mode, grad_compress=gc, device=dev,
-                                      reference=reference)
+                                      reference=reference, save_every=save_every)
             counts = check_train_lifecycle(res)
             total = {k: total.get(k, 0) + v for k, v in counts.items()}
             del res
@@ -1897,6 +2156,87 @@ def phase_serving(dev) -> int:
         f"output equal to --device cpu")
     log_lines("[serving]", text)
     return 1
+
+
+def phase_launchers(dev) -> dict:
+    """The launchers at full width on their default device, each drawing
+    the weights there (a generator on the card, seeded by --seed /
+    TrainerConfig.seed), counted: launch.serve --arch LAUNCH_SERVE_ARCH
+    (its prompt goes through decode_step one token at a time, as in the
+    JAX launcher: K1 bf16 = attention layers x prefills = 0), with the
+    draw's seconds, the peak allocated memory and its tokens/s; launch.train
+    --arch LAUNCH_TRAIN_ARCH for LAUNCH_TRAIN_STEPS steps (K1 bf16 and its
+    backward as step_launches derives, and its full save at the end of its
+    budget).  Run after [archs2] has freed its models.  Returns the
+    launches."""
+    from repro_torch.models.model import Model
+
+    draws, real = [], Model.init
+
+    def timed_init(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = real(self, *args, **kw)
+        torch.cuda.synchronize()
+        draws.append((time.perf_counter() - t0, kw.get("generator")))
+        return out
+
+    total = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    b, prompt, new = LAUNCH_SERVE_SHAPE
+    Model.init = timed_init
+    try:
+        (rc, text), counts, wall = counted(lambda: printed(serve_launcher.main, [
+            "--arch", LAUNCH_SERVE_ARCH, "--batch", str(b), "--prompt-len", str(prompt),
+            "--tokens", str(new)]))
+    finally:
+        Model.init = real
+    cfg = get_config(LAUNCH_SERVE_ARCH)
+    (draw_s, gen), = draws
+    if rc != 0 or counts != exactly(counts) or gen is None or gen.device.type != "cuda":
+        raise RuntimeError(f"launch.serve --arch {LAUNCH_SERVE_ARCH}: rc {rc}, launches {counts} "
+                           f"(expected none: attention layers {attn_layers(cfg)} x 0 prefills), "
+                           f"generator {gen}:\n{text}")
+    peak = torch.cuda.max_memory_allocated() - base
+    rate = next((ln for ln in text.splitlines() if "tok/s" in ln), "")
+    log(f"[serving] launch.serve.main --arch {LAUNCH_SERVE_ARCH} at full width on the default "
+        f"device: {param_count(cfg)} params drawn on the card in {draw_s:.2f} s (generator on "
+        f"{gen.device}), peak allocated {gib(peak)}; {b} x {prompt} prompt + {new} new tokens, "
+        f"{wall:.2f} s in all; launches none (K1 bf16 = {attn_layers(cfg)} attention layers x 0 "
+        f"prefills: the prompt runs through decode_step)")
+    log_lines("[serving]", text)
+    torch.cuda.empty_cache()
+    if torch.cuda.memory_allocated() - base > ARCH2_LEAK_BYTES:
+        raise RuntimeError(f"launch.serve --arch {LAUNCH_SERVE_ARCH} left memory allocated")
+
+    cfg = get_config(LAUNCH_TRAIN_ARCH)
+    draws.clear()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as work:
+        Model.init = timed_init
+        try:
+            (rc, text), counts, wall = counted(lambda: printed(train_launcher.main, [
+                "--arch", LAUNCH_TRAIN_ARCH, "--steps", str(LAUNCH_TRAIN_STEPS), "--batch",
+                str(LAUNCH_TRAIN_SHAPE[0]), "--seq", str(LAUNCH_TRAIN_SHAPE[1]), "--ckpt-dir",
+                work]))
+        finally:
+            Model.init = real
+    expect = {k: v * LAUNCH_TRAIN_STEPS for k, v in step_launches(cfg, "full").items()}
+    (draw_s, gen), = draws
+    if rc != 0 or counts != expect or gen is None or gen.device.type != "cuda":
+        raise RuntimeError(f"launch.train --arch {LAUNCH_TRAIN_ARCH}: rc {rc}, launches {counts}, "
+                           f"expected {expect}, generator {gen}:\n{text}")
+    log(f"[serving] launch.train.main --arch {LAUNCH_TRAIN_ARCH} --steps {LAUNCH_TRAIN_STEPS} at "
+        f"full width on the default device, {LAUNCH_TRAIN_SHAPE[0]} x {LAUNCH_TRAIN_SHAPE[1]} "
+        f"tokens a step: drawn on the card in {draw_s:.2f} s, peak allocated "
+        f"{gib(torch.cuda.max_memory_allocated() - base)}, {wall:.2f} s in all with its full save; "
+        f"launches {counts}, as derived")
+    log_lines("[serving]", text)
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+    torch.cuda.empty_cache()
+    return total
 
 
 def phase_examples(dev) -> dict:
@@ -2243,34 +2583,54 @@ def check_arch_card_vs_cpu(cfg, params, dev, tag: str = "[archs]", seq: int = 0)
     batch = arch_batch(cut, CARD_CPU_BATCH, seq, seed=0)
     inputs = torch_inputs(batch)
     model = build_model(cut)
-    card_routes, cpu_routes = [], []
-    with expert_choice(card_routes):
+    depth = "whole" if cut is cfg else f"cut to {cut.num_layers} layer(s)"
+    what = f"{tag} {cut.name} {depth}"
+
+    def routes(record):  # an MoE model's expert choice; nothing to patch in any other
+        return expert_choice(record) if cut.moe else contextlib.nullcontext()
+
+    def forward_check(cpu_routes, cpu32):
+        """The CPU forwards (bf16, and float32 for the log) against the
+        card's logits."""
+        with routes(cpu_routes):
+            plain, _ = model.forward(host, inputs)
+        plain = plain.float()
+        err, top = float((card - plain).abs().max()), float(plain.abs().max())
+        share = err / (CARD_CPU_BF16_TOL * top)
+        if not share <= 1.0:
+            raise RuntimeError(f"{cut.name} forward on the card vs the CPU: max abs err {err}, "
+                               f"{100 * share:.1f}% of {CARD_CPU_BF16_TOL} x max|logit| {top}")
+        with routes(cpu32):  # an MoE layer's float32 expert choice on the CPU
+            exact, _ = build_model(replace(cut, dtype="float32")).forward(
+                tree_map(lambda x: x.float(), host), inputs)
+        log(f"{tag} {cfg.name} {depth} at full width, {CARD_CPU_BATCH} x "
+            f"{seq} {inputs_word(cut)}: forward logits vs device='cpu' max abs err {err:.3e}, "
+            f"{100 * share:.1f}% of {CARD_CPU_BF16_TOL} x max|logit| ({top:.3f}); from the "
+            f"float32 forward: card {float((card - exact).abs().max()):.3e}, plain "
+            f"{float((plain - exact).abs().max()):.3e}; launches {counts}")
+
+    card_routes = []
+    with routes(card_routes):
         (card, _), counts, _ = counted(lambda: model.forward(p, torch_inputs(batch, dev)))
     if counts != exactly(counts, flash_attention_bf16=attn_layers(cut)):
         raise RuntimeError(f"{cut.name} forward: launch counts {counts}")
+    card = card.float().cpu()
     host = tree_map(lambda x: x.cpu(), p)
-    with expert_choice(cpu_routes):
-        plain, _ = model.forward(host, inputs)
-    card, plain = card.float().cpu(), plain.float()
-    err, top = float((card - plain).abs().max()), float(plain.abs().max())
-    share = err / (CARD_CPU_BF16_TOL * top)
-    if not share <= 1.0:
-        raise RuntimeError(f"{cut.name} forward on the card vs the CPU: max abs err {err}, "
-                           f"{100 * share:.1f}% of {CARD_CPU_BF16_TOL} x max|logit| {top}")
-    cpu32 = []  # an MoE layer's float32 expert choice on the CPU
-    with expert_choice(cpu32):
-        exact, _ = build_model(replace(cut, dtype="float32")).forward(
-            tree_map(lambda x: x.float(), host), inputs)
-    depth = "whole" if cut is cfg else f"cut to {cut.num_layers} layer(s)"
-    log(f"{tag} {cfg.name} {depth} at full width, {CARD_CPU_BATCH} x "
-        f"{seq} {inputs_word(cut)}: forward logits vs device='cpu' max abs err {err:.3e}, "
-        f"{100 * share:.1f}% of {CARD_CPU_BF16_TOL} x max|logit| ({top:.3f}); from the float32 "
-        f"forward: card {float((card - exact).abs().max()):.3e}, plain "
-        f"{float((plain - exact).abs().max()):.3e}; launches {counts}")
-    what = f"{tag} {cut.name} {depth}"
     if not cut.moe:
-        step = check_bf16_step(cut, p, dev, batch, what)
-        return {k: counts[k] + step[k] for k in counts}
+        # no routing to patch: the CPU side runs beside the card's next work
+        step = bf16_card_step(cut, p, dev, batch, what)
+
+        def cpu_side():
+            forward_check([], [])
+            bf16_cpu_check(cut, host, batch, what, *step)
+
+        if resolve(dev).type == "cuda":
+            CPU_SIDES.submit(cpu_side)
+        else:  # a rehearsal on the CPU, whose plain stand-ins count as launches
+            cpu_side()
+        return {k: counts[k] + step[2][k] for k in counts}
+    cpu_routes, cpu32 = [], []
+    forward_check(cpu_routes, cpu32)
     # MoE: top-k routing is discontinuous, so a token whose k-th and
     # (k+1)-th router probabilities lie closer than the two sides' bf16
     # rounding apart goes to another expert on each side, and the experts'
@@ -2658,6 +3018,7 @@ def phase_archs(dev) -> dict:
                 add(run_moe_lifecycle(cfg, dev, work))
             torch.cuda.empty_cache()
     check_arch_flash(dev, torch.Generator().manual_seed(3))
+    CPU_SIDES.finish()
     log(f"[archs] phase wall {time.perf_counter() - t_phase:.1f} s")
     return total
 
@@ -2975,6 +3336,7 @@ def phase_archs2(dev) -> dict:
             del p
             check_freed(arch, base, t_arch, "[archs2]")
     check_arch_flash(dev, torch.Generator().manual_seed(3), ARCHS2, "[archs2]")
+    CPU_SIDES.finish()
     log(f"[archs2] phase wall {time.perf_counter() - t_phase:.1f} s")
     return total
 
@@ -3322,6 +3684,7 @@ def phase_archs3(dev) -> dict:
             for k, n in run(dev, work, base).items():
                 total[k] = total.get(k, 0) + n
     check_arch_flash(dev, torch.Generator().manual_seed(3), ARCHS3, "[archs3]")
+    CPU_SIDES.finish()
     log(f"[archs3] phase wall {time.perf_counter() - t_phase:.1f} s")
     return total
 
@@ -3335,6 +3698,10 @@ MESH_ARCH = "qwen3-1.7b"
 MESH_PREFILL_BATCH, MESH_PREFILL_SEQ = 2, 512
 MESH_PROMPT, MESH_NEW = 16, 8  # greedy decode of 2 x 16 prompt tokens + 8 new
 MESH_DRYRUN = ("qwen3-1.7b", "decode_32k", "single")
+# the recurrent mixers on channel blocks, at train_4k's sequence (16 Mamba
+# / mLSTM chunks), and an attention block beside them: (arch, block)
+MESH_BLOCKS = (("jamba-v0.1-52b", 0), ("jamba-v0.1-52b", 4), ("xlstm-1.3b", 0))
+MESH_BLOCK_SEQ = 4096
 
 
 def shard_tree(tree, mesh, rules=None):
@@ -3500,6 +3867,71 @@ def run_mesh_qwen3(mesh, dev) -> dict:
     return pre
 
 
+def run_mesh_blocks(mesh, dev) -> dict:
+    """Each of MESH_BLOCKS drawn on the card at full width in bf16: its
+    forward and backward over 1 x MESH_BLOCK_SEQ tokens unsharded, then on
+    the 1 x 1 mesh (Mamba and the mLSTM through on_channel_shards, the
+    attention through K1 on local shards), the output and the gradients of
+    x and of every param bit-identical; each run counted (K1 bf16 and its
+    backward once in an attention block) and its peak allocated memory
+    printed.  Returns the launches."""
+    total = {}
+    names = tuple(mesh.mesh_dim_names)
+    for arch, i in MESH_BLOCKS:
+        cfg = get_config(arch)
+        kind = cfg.block_pattern[i]
+        gen = torch.Generator(device=dev).manual_seed(40 + i)
+        p = tfm.init_block(gen, cfg, kind, tfm._is_moe_pos(cfg, i), dev)
+        x = torch.randn((1, MESH_BLOCK_SEQ, cfg.d_model), generator=gen, device=dev).to(
+            torch.bfloat16)
+        cot = torch.randn(x.shape, generator=gen, device=dev).to(torch.bfloat16)
+        positions = torch.arange(MESH_BLOCK_SEQ, device=dev)[None]
+        expect = (dict(flash_attention_bf16=1, flash_attention_bwd_bf16=1)
+                  if kind.startswith("attn") else {})
+
+        def run(p, x, cot):
+            live = tree_map(lambda t: t.detach().requires_grad_(True), p)
+            xl = x.detach().requires_grad_(True)
+            with torch.enable_grad(), mesh_scope(live):
+                out, _ = tfm.apply_block(live, xl, kind, cfg, positions)
+                leaves = [t for _, t in flatten_with_paths(live)]
+                grads = torch.autograd.grad(out, [xl] + leaves, grad_outputs=cot)
+            return [out.detach()] + list(grads)
+
+        def measured(fn):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            out, counts, wall = counted(fn)
+            if counts != exactly(counts, **expect):
+                raise RuntimeError(f"[mesh] {arch} b{i} ({kind}): launch counts {counts}, "
+                                   f"expected {expect or 'none'}")
+            for k, n in counts.items():
+                total[k] = total.get(k, 0) + n
+            return out, counts, wall, torch.cuda.max_memory_allocated() - before
+
+        want, counts, wall_u, peak_u = measured(lambda: run(p, x, cot))
+        with force_mesh_axes(names):
+            dp = shard_tree({"b": p}, mesh)["b"]
+            dx = distribute_tensor(x, mesh, placements(logical_spec("batch", "seq", None), mesh),
+                                   src_data_rank=None)
+        got, _, wall_d, peak_d = measured(lambda: run(dp, dx, DTensor.from_local(
+            cot, mesh, dx.placements, run_check=False)))
+        got = [g.full_tensor() if isinstance(g, DTensor) else g for g in got]
+        for j, (a, b) in enumerate(zip(got, want)):
+            if not torch.equal(a, b):
+                what = "output" if j == 0 else "grad of x" if j == 1 else f"grad {j - 2}"
+                raise RuntimeError(f"[mesh] {arch} b{i} ({kind}) on the mesh: its {what} differs "
+                                   f"from unsharded by {float((a.float() - b.float()).abs().max())}")
+        log(f"[mesh] {arch} block b{i} ({kind}) in bf16, forward and backward over 1 x "
+            f"{MESH_BLOCK_SEQ} tokens: unsharded {wall_u:.3f} s, peak allocated {gib(peak_u)}; on "
+            f"the 1 x 1 mesh {wall_d:.3f} s, peak allocated {gib(peak_d)}; output and all "
+            f"{len(want) - 1} gradients bit-identical; launches {counts} each")
+        del p, dp, want, got
+        torch.cuda.empty_cache()
+    return total
+
+
 def run_mesh_crosspod(dev) -> dict:
     """crosspod_allgather_mean_int8 over micro-lm's gradients on a (1, 1, 1)
     ('pod', 'data', 'model') mesh: bit-identical to compress_roundtrip (one
@@ -3593,6 +4025,7 @@ def phase_mesh(dev) -> dict:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as work:
             add(run_mesh_lifecycle(mesh, dev, work))
         add(run_mesh_qwen3(mesh, dev))
+        add(run_mesh_blocks(mesh, dev))
         add(run_mesh_crosspod(dev))
         data = SyntheticLMDataset(512, 64, 4, seed=9)
         with force_mesh_axes(tuple(mesh.mesh_dim_names)):
@@ -3619,6 +4052,7 @@ def main() -> int:
 
     kind = phase_device()
     dev = resolve("cuda")
+    cpu_paths, pool = start_cpu_paths()
     phase_build()
 
     gen = torch.Generator().manual_seed(0)
@@ -3630,7 +4064,8 @@ def main() -> int:
     stats = check_flash(dev, gen)
     stats.update(check_flash_bwd(dev, gen))
     stats["quantize_int8"], stats["dequantize_int8"] = check_quantize(dev, gen, leaves)
-    cpu, captured = run_cpu_paths()
+    cpu, captured = cpu_paths.result()
+    pool.shutdown()
     stats["decide_dest"] = check_decide(dev, captured)
     stamp("build and kernels")
     for name, st in stats.items():
@@ -3704,6 +4139,12 @@ def main() -> int:
         launches[name] += n
     log(f"[archs2] launches of the architectures' runs {archs2}; all counted paths {launches}")
     stamp("archs and archs2")
+    launchers = phase_launchers(dev)
+    for name, n in launchers.items():
+        launches[name] += n
+    log(f"[serving] launches of the launchers at full width {launchers}; all counted paths "
+        f"{launches}")
+    stamp("launchers")
     archs3 = phase_archs3(dev)
     for name, n in archs3.items():
         launches[name] += n

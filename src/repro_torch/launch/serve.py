@@ -15,7 +15,11 @@ a short simulated horizon.
       --scenario solar-heavy --at-hour 12
 
 Runs on the card unless ``--device cpu`` is given: decode runs the model
-there, and the simulated horizon's simulator is made for that device.
+there, and the simulated horizon's simulator is made for that device.  The
+weights are drawn on that device too, by a generator there seeded with
+``--seed``: a draw on the card and one on the CPU give different weights
+from the same seed (the JAX package's ``jax.random`` gives the same values
+on every device).
 """
 from __future__ import annotations
 
@@ -241,7 +245,8 @@ def main(argv=None):
     if cfg.is_encdec or cfg.input_mode == "embeddings":
         raise SystemExit("serve demo targets token-input decoder-only archs")
     model = build_model(cfg)
-    params = model.init(args.seed, device=device)
+    params = model.init(generator=torch.Generator(device=device).manual_seed(args.seed),
+                        device=device)
     gen = torch.Generator().manual_seed(args.seed + 1)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen).to(device)
     t0 = time.time()

@@ -5,7 +5,11 @@ and runs ``--steps`` steps.
   PYTHONPATH=src python -m repro_torch.launch.train --arch micro-lm --steps 100
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 6 --device cpu
 
-Runs on the card unless ``--device cpu`` is given.
+Runs on the card unless ``--device cpu`` is given.  The weights are drawn
+on that device, by a generator there seeded with ``TrainerConfig.seed``: a
+draw on the card and one on the CPU give different weights from the same
+seed (the JAX package's ``jax.random`` gives the same values on every
+device).
 """
 from __future__ import annotations
 
@@ -86,6 +90,7 @@ def main(argv=None):
         ),
         preempt_signal=preempt,
         device=device,
+        generator=torch.Generator(device=device),
     )
     if args.resume:
         try:

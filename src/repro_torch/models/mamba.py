@@ -9,7 +9,8 @@ PyTorch has no associative scan, so the prefix is a Hillis-Steele doubling
 scan on the float32 (Abar, Bx) pairs: ceil(log2(l)) elementwise passes
 over the chunk, out of place so that autograd sees every one.  Only one
 chunk's (b, l, d_inner, d_state) tensors are ever built (268 MB each at
-jamba's width, 2 x 256 tokens).  The scan sums in another order than
+jamba's width, 2 x 256 tokens), in the backward too: each chunk is
+recomputed there (``_scan``).  The scan sums in another order than
 ``jax.lax.associative_scan``; the tests hold the results at float32
 tolerances.  The scan is plain PyTorch, as it is plain JAX in the package:
 it is no Pallas kernel.
@@ -18,14 +19,15 @@ Decode is the O(1) recurrent update.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models.layers import truncated_normal
-from repro_torch.parallel.compat import DTensor
-from repro_torch.parallel.shards import on_shards
+from repro_torch.parallel.shards import Whole, on_channel_shards
 from repro_torch.parallel.sharding import shd
 
 CHUNK = 256
@@ -69,12 +71,15 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, state=None):
     return out + b, new_state
 
 
-def _ssm_params(p, xc, d_state: int):
-    """xc: (b, l, d_in) post-conv activations -> (dt, B, C), float32."""
+def _ssm_params(p, xc, d_state: int, ch=Whole):
+    """xc: (b, l, c) post-conv activations of a block of channels -> (dt,
+    B, C), float32.  ``x_proj`` sums over the channels, so with channel
+    blocks its product is the one partial sum the mixer reduces (every
+    channel needs the whole B and C)."""
     dt_rank = p["dt_proj"].shape[0]
-    proj = xc @ p["x_proj"]  # (b, l, dt_rank + 2N)
+    proj = ch.reduce(xc @ p["x_proj"])  # (b, l, dt_rank + 2N)
     dt_raw, B, C = torch.split(proj, [dt_rank, d_state, d_state], dim=-1)
-    dt = F.softplus(dt_raw @ p["dt_proj"] + p["dt_bias"].float())  # (b, l, d_in)
+    dt = F.softplus(dt_raw @ p["dt_proj"] + p["dt_bias"].float())  # (b, l, c)
     return dt.float(), B.float(), C.float()
 
 
@@ -101,7 +106,60 @@ def _scan_chunk(h0, A, dt, B, C, x):
     a_cum, h_intra = _prefix_scan(Abar, Bx)
     h = h_intra + a_cum * h0[:, None]  # (b, l, d_in, N)
     y = torch.einsum("bldn,bln->bld", h, C)
-    return h[:, -1], y
+    # a copy of the last state: a view would keep all of h alive while the
+    # next chunk holds it as its input
+    return h[:, -1].clone(), y
+
+
+def _scan(h, A, dt, B, C, x, n_chunks: int):
+    """The chunks in turn from the state ``h``: (last state, y (b, s, c)).
+    Under autograd each chunk's passes are recomputed in the backward
+    (non-reentrant checkpointing), so that only one chunk's (b, l, c, N)
+    tensors are alive at once, in the forward and in the backward (the
+    recompute of a remat group included), and only the carried states are
+    kept.  The recompute runs the same ops: the values are the same."""
+    ys = []
+    # split, not a slice per chunk: a slice's backward writes its gradient
+    # into zeros of the whole sequence, once per chunk
+    for parts in zip(*(t.chunk(n_chunks, dim=1) for t in (dt, B, C, x))):
+        if torch.is_grad_enabled():
+            h, y = ckpt.checkpoint(_scan_chunk, h, A, *parts, use_reentrant=False)
+        else:
+            h, y = _scan_chunk(h, A, *parts)
+        ys.append(y)
+    return h, torch.cat(ys, dim=1)
+
+
+# Each leaf's inner-channel dim (its 'mlp' dim in ``parallel/sharding.py``'s
+# rules): ``in_proj``'s product is cut into [x | z], each split in blocks.
+CHANNELS = {"in_proj": ("cols", 2), "conv_w": 1, "conv_b": 0, "x_proj": 0, "dt_proj": 1,
+            "dt_bias": 0, "A_log": 0, "D": 0, "out_proj": 0}
+STATE_CHANNELS = {"conv": 2, "ssm": 1}
+
+
+def _mixer(x, p, ch, state, *, d_state: int, return_state: bool):
+    """The full-sequence mixer on one block of inner channels (``ch``;
+    ``Whole`` for all of them): x (b, s, d) and the block's params ->
+    (its part of the output (b, s, d), a partial sum over the blocks; the
+    block's decode state or None)."""
+    b, s, _ = x.shape
+    xi, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
+    xc, _ = _causal_conv(xi, p["conv_w"], p["conv_b"])
+    xc = F.silu(xc)
+    dt, B, C = _ssm_params(p, xc, d_state, ch)
+    xcf = xc.float()
+    n_chunks = max(1, s // CHUNK)
+    if s % n_chunks:
+        raise ValueError(f"apply_mamba: {s} tokens do not split into {n_chunks} chunks of equal "
+                         f"length (the JAX package's chunking: max(1, s // {CHUNK}) chunks)")
+    h, y = _scan(xcf.new_zeros((b, xi.shape[-1], d_state)), p["A_log"], dt, B, C, xcf, n_chunks)
+    y = y + xcf * p["D"]
+    out = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    if not return_state:
+        return out, None
+    k = p["conv_w"].shape[0]
+    conv = torch.cat([xi.new_zeros((b, k - 1, xi.shape[-1])), xi], dim=1)[:, s:]
+    return out, {"conv": conv, "ssm": h}
 
 
 def apply_mamba(p: dict, x: torch.Tensor, *, d_state: int, return_state: bool = False):
@@ -112,41 +170,24 @@ def apply_mamba(p: dict, x: torch.Tensor, *, d_state: int, return_state: bool = 
     'ssm'}, as ``apply_mamba_decode`` takes it), so that decode can follow a
     prefill.
 
-    On a DTensor the scan runs on each rank's batch shard with the
-    sequence gathered (``parallel/shards.on_shards``): the scan carries
-    its state along the sequence."""
-    if isinstance(x, DTensor):
-        out = on_shards(lambda xl, pl: apply_mamba(pl, xl, d_state=d_state,
-                                                   return_state=return_state), x, p)
-        if return_state:
-            return shd(out[0], "batch", "seq", None), out[1]
-        return shd(out, "batch", "seq", None)
-    b, s, _ = x.shape
-    xi, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
-    xi = shd(xi, "batch", "seq", None)
-    xc, _ = _causal_conv(xi, p["conv_w"], p["conv_b"])
-    xc = F.silu(xc)
-    dt, B, C = _ssm_params(p, xc, d_state)
-    xcf = xc.float()
-    n_chunks = max(1, s // CHUNK)
-    if s % n_chunks:
-        raise ValueError(f"apply_mamba: {s} tokens do not split into {n_chunks} chunks of equal "
-                         f"length (the JAX package's chunking: max(1, s // {CHUNK}) chunks)")
-    l = s // n_chunks
-    h = xcf.new_zeros((b, xi.shape[-1], d_state))
-    ys = []
-    for c in range(n_chunks):
-        t = slice(c * l, (c + 1) * l)
-        h, y = _scan_chunk(h, p["A_log"], dt[:, t], B[:, t], C[:, t], xcf[:, t])
-        ys.append(y)
-    y = torch.cat(ys, dim=1) + xcf * p["D"]
-    y = shd(y.to(x.dtype) * F.silu(z), "batch", "seq", None)
-    out = y @ p["out_proj"]
-    if not return_state:
-        return out
-    k = p["conv_w"].shape[0]
-    conv = torch.cat([xi.new_zeros((b, k - 1, xi.shape[-1])), xi], dim=1)[:, s:]
-    return out, {"conv": conv, "ssm": h}
+    On a DTensor the mixer runs on each rank's batch shard, the sequence
+    whole, and on its block of the inner channels, where the param rules
+    put them (``parallel/shards.on_channel_shards``): ``in_proj``'s
+    columns and ``out_proj``'s rows of the block (the block's part of the
+    output is a partial sum, reduced where the sequence is split again),
+    the conv, ``dt_proj``, ``A_log`` and ``D`` local; ``x_proj``'s product
+    (dt, B, C) is all-reduced; the state (``return_state``) comes back on
+    the blocks."""
+    fn = functools.partial(_mixer, d_state=d_state, return_state=return_state)
+    if torch.is_grad_enabled():
+        # the mixer keeps only its input and params for the backward, which
+        # reruns it (and, inside, each chunk's scan again): the sequence-wide
+        # float32 tensors of a layer group's Mamba layers are not all kept
+        # through the group's recompute
+        fn = functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    out, state = on_channel_shards(fn, x, p, CHANNELS, state_channels=STATE_CHANNELS)
+    out = shd(out, "batch", "seq", None)
+    return (out, state) if return_state else out
 
 
 # ---------------------------------------------------------------------------
@@ -170,21 +211,28 @@ def mamba_state_pspecs(long_context: bool = False) -> dict:
     return {"conv": (b, None, inner), "ssm": (b, inner, None)}
 
 
-def apply_mamba_decode(p: dict, x: torch.Tensor, state: dict, *, d_state: int):
-    """x: (b, 1, d); state: {'conv', 'ssm'} -> (y (b, 1, d), new state).
-    On a DTensor, per batch shard with the state placed as x."""
-    if isinstance(x, DTensor):
-        return on_shards(lambda xl, pl, st: apply_mamba_decode(pl, xl, st, d_state=d_state),
-                         x, p, state, batched=(1,))
+def _decode(x, p, ch, state, *, d_state: int):
+    """One token on one block of inner channels (``_mixer``'s split)."""
     xi, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
     xc, conv_state = _causal_conv(xi, p["conv_w"], p["conv_b"], state=state["conv"])
     xc = F.silu(xc)
-    dt, B, C = _ssm_params(p, xc, d_state)
-    A = -torch.exp(p["A_log"])  # (d_in, N)
+    dt, B, C = _ssm_params(p, xc, d_state, ch)
+    A = -torch.exp(p["A_log"])  # (c, N)
     xcf = xc.float()
-    Abar = torch.exp(dt[:, 0, :, None] * A[None])  # (b, d_in, N)
+    Abar = torch.exp(dt[:, 0, :, None] * A[None])  # (b, c, N)
     Bx = (dt[:, 0] * xcf[:, 0])[..., None] * B[:, 0, None, :]
-    h = Abar * state["ssm"] + Bx  # (b, d_in, N)
+    h = Abar * state["ssm"] + Bx  # (b, c, N)
     y = torch.einsum("bdn,bn->bd", h, C[:, 0]) + xcf[:, 0] * p["D"]
     y = y[:, None].to(x.dtype) * F.silu(z)
     return y @ p["out_proj"], {"conv": conv_state.to(state["conv"].dtype), "ssm": h}
+
+
+def apply_mamba_decode(p: dict, x: torch.Tensor, state: dict, *, d_state: int):
+    """x: (b, 1, d); state: {'conv', 'ssm'} -> (y (b, 1, d), new state).
+    On a DTensor, as ``apply_mamba`` on the blocks of inner channels that
+    the state's placements give, x's batch split as the state's: the state
+    stays where its pspecs put it (under the baseline rules its batch split
+    over 'dp_batch' and every channel whole, so one block)."""
+    fn = functools.partial(_decode, d_state=d_state)
+    out, state = on_channel_shards(fn, x, p, CHANNELS, state, STATE_CHANNELS)
+    return shd(out, "batch", "seq", None), state

@@ -22,6 +22,7 @@ A decode state is a dict: mLSTM {'C', 'n', 'm'} (the JAX package's tuple
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -29,7 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import activation, truncated_normal
 from repro_torch.parallel.compat import DTensor
-from repro_torch.parallel.shards import on_shards
+from repro_torch.parallel.shards import Whole, on_channel_shards, on_shards
 from repro_torch.parallel.sharding import shd
 
 CHUNK = 256
@@ -64,21 +65,25 @@ def init_mlstm(gen, d: int, num_heads: int, num_layers: int, dtype, device) -> d
     }
 
 
-def _mlstm_qkvif(p, xi):
-    b, s, _ = xi.shape
+def _mlstm_qkvif(p, xa, heads: slice, cols: slice, kcols: slice):
+    """q, k, v and the gates of the heads ``heads`` from ``xa`` (b, s,
+    d_in), all of the channels: q and k at their columns ``kcols``, v at
+    ``cols`` (every column for whole tensors)."""
+    b, s, _ = xa.shape
     H, dh = p["wq"].shape[0], p["wq"].shape[1]
-    xh = xi.reshape(b, s, H, dh)
-    q = torch.einsum("bshk,hkj->bshj", xh, p["wq"])
-    k = torch.einsum("bshk,hkj->bshj", xh, p["wk"])
-    v = torch.einsum("bshk,hkj->bshj", xh, p["wv"])
-    i_raw = (xi @ p["wi"] + p["bi"]).float()  # (b, s, H)
-    f_raw = (xi @ p["wf"] + p["bf"]).float()
+    xh = xa.reshape(b, s, H, dh)[:, :, heads]
+    q = torch.einsum("bshk,hkj->bshj", xh, p["wq"][heads][..., kcols])
+    k = torch.einsum("bshk,hkj->bshj", xh, p["wk"][heads][..., kcols])
+    v = torch.einsum("bshk,hkj->bshj", xh, p["wv"][heads][..., cols])
+    i_raw = (xa @ p["wi"][:, heads] + p["bi"][heads]).float()  # (b, s, heads)
+    f_raw = (xa @ p["wf"][:, heads] + p["bf"][heads]).float()
     return q, k, v, i_raw, F.logsigmoid(f_raw)
 
 
 def _mlstm_chunk(carry, q, k, v, i_raw, logf):
-    """One chunk. carry = (C (b,H,dh,dh), n (b,H,dh), m (b,H)).
-    q,k,v: (b,l,H,dh); i_raw, logf: (b,l,H) f32."""
+    """One chunk. carry = (C (b,H,dh,e), n (b,H,dh), m (b,H)).
+    q,k: (b,l,H,dh); v: (b,l,H,e) (e = dh, or a block of v's columns);
+    i_raw, logf: (b,l,H) f32."""
     C0, n0, m0 = carry
     l, dh = q.shape[1], q.shape[3]
     scale = dh ** -0.5
@@ -112,10 +117,10 @@ def _mlstm_chunk(carry, q, k, v, i_raw, logf):
     return (C1, n1, mL), h
 
 
-def _mlstm_zero_carry(b: int, H: int, dh: int, device):
+def _mlstm_zero_carry(b: int, H: int, dh: int, device, e: Optional[int] = None):
     """The JAX package's carry for a sequence with no past: C = n = 0,
-    m = -inf."""
-    return (torch.zeros((b, H, dh, dh), device=device),
+    m = -inf (C (b, H, dh, e), e = dh by default)."""
+    return (torch.zeros((b, H, dh, e or dh), device=device),
             torch.zeros((b, H, dh), device=device),
             torch.full((b, H), -torch.inf, device=device))
 
@@ -124,11 +129,11 @@ def mlstm_cell(q, k, v, i_raw, logf, carry=None, chunk: Optional[int] = None):
     """Chunk-parallel mLSTM over a full sequence in chunks of ``min(chunk,
     s)`` tokens (default ``CHUNK``), which must divide ``s`` (as the JAX
     package asserts).
-    q,k,v: (b,s,H,dh); i_raw/logf: (b,s,H) f32.  Returns (h (b,s,H,dh)
-    f32, carry)."""
+    q,k: (b,s,H,dh); v: (b,s,H,e); i_raw/logf: (b,s,H) f32.  Returns (h
+    (b,s,H,e) f32, carry)."""
     b, s, H, dh = q.shape
     if carry is None:
-        carry = _mlstm_zero_carry(b, H, dh, q.device)
+        carry = _mlstm_zero_carry(b, H, dh, q.device, v.shape[3])
     l = min(chunk or CHUNK, s)
     if s % l:
         raise ValueError(f"mlstm_cell: {s} tokens are not a whole number of {l}-token chunks")
@@ -141,10 +146,12 @@ def mlstm_cell(q, k, v, i_raw, logf, carry=None, chunk: Optional[int] = None):
     return torch.cat(hs, dim=1), carry
 
 
-def mlstm_cell_recurrent(q, k, v, i_raw, logf, carry=None):
+def mlstm_cell_recurrent(q, k, v, i_raw, logf, carry=None, reduce=Whole.reduce):
     """The recurrence one token at a time (the decode path; the JAX
-    package's oracle for ``mlstm_cell``)."""
-    b, s, H, dh = q.shape
+    package's oracle for ``mlstm_cell``).  q, k and the carry's C and n may
+    hold a block of the key dim (C's dim 2): then the two products that sum
+    over it, C q and n q, are partial sums that ``reduce`` completes."""
+    b, s, H, dh = v.shape
     if carry is None:
         carry = _mlstm_zero_carry(b, H, dh, q.device)
     scale = dh ** -0.5
@@ -158,35 +165,71 @@ def mlstm_cell_recurrent(q, k, v, i_raw, logf, carry=None):
         iin = torch.exp(it - m2)[..., None]
         C = fdec[..., None] * C + iin[..., None] * torch.einsum("bhk,bhe->bhke", kt, vt)
         n = fdec * n + iin * kt
-        den = torch.einsum("bhk,bhk->bh", n, qt * scale)
-        num = torch.einsum("bhke,bhk->bhe", C, qt * scale)
+        den = reduce(torch.einsum("bhk,bhk->bh", n, qt * scale))
+        num = reduce(torch.einsum("bhke,bhk->bhe", C, qt * scale))
         hs.append(num / torch.maximum(torch.abs(den), torch.exp(-m2))[..., None])
         m = m2
     return torch.stack(hs, dim=1), (C, n, m)
 
 
+# Each leaf's inner-channel dim (its 'mlp' dim in ``parallel/sharding.py``'s
+# rules); the per-head maps and the gates read every channel (whole).
+CHANNELS = {"w_up": ("cols", 2), "skip": 0, "w_down": 0}
+STATE_CHANNELS = {"C": 2, "n": 2, "m": None}
+
+
+def _block_cols(start: int, c: int, dh: int):
+    """(heads, v's columns) of the channels [start, start + c) of (H, dh)."""
+    if c >= dh:
+        return slice(start // dh, (start + c) // dh), slice(0, dh)
+    return slice(start // dh, start // dh + 1), slice(start % dh, start % dh + c)
+
+
+def _mlstm(x, p, ch, state, *, num_heads: int, decode: bool):
+    """The mLSTM block on one block of inner channels (``ch``; ``Whole``
+    for all of them): (its part of the output (b, s, d), a partial sum over
+    the blocks; the new state with ``decode``).  q, k and the gates read
+    every channel, so the block's x is gathered whole; the full-sequence
+    cell runs on the block's columns of v (its heads' (dh x c) carries:
+    no sum over the blocks), decode on the key rows of every head's carry
+    that the state's placements give (all of them under the baseline
+    rules; C q and n q are summed over the blocks)."""
+    xi, z = torch.chunk(x @ p["w_up"], 2, dim=-1)  # this block's channels
+    xa = ch.gather(xi)
+    b, s, d_in = xa.shape
+    dh = d_in // num_heads
+    c = xi.shape[-1]
+    start = ch.index * c
+    every = slice(0, None)
+    if decode:
+        kc = dh // ch.count
+        rows = slice(ch.index * kc, (ch.index + 1) * kc)
+        q, k, v, i_raw, logf = _mlstm_qkvif(p, xa, slice(0, num_heads), every, rows)
+        carry = (state["C"], state["n"], state["m"])
+        h, (C, n, m) = mlstm_cell_recurrent(q, k, v, i_raw, logf, carry=carry, reduce=ch.reduce)
+        state = {"C": C, "n": n, "m": m}
+        h = h.reshape(b, s, d_in)[..., start:start + c]
+    else:
+        heads, cols = _block_cols(start, c, dh)
+        q, k, v, i_raw, logf = _mlstm_qkvif(p, xa, heads, cols, every)
+        h, _ = mlstm_cell(q, k, v, i_raw, logf, carry=state)
+        h = h.reshape(b, s, c)
+    hflat = h.to(x.dtype) + xi * p["skip"]
+    return (hflat * F.silu(z)) @ p["w_down"], state
+
+
 def apply_mlstm(p: dict, x: torch.Tensor, num_heads: int, state=None, decode: bool = False):
     """Full mLSTM block. x: (b, s, d) -> (b, s, d); with ``decode``, the
     recurrent form from ``state`` ({'C', 'n', 'm'}), returning (out, new
-    state).  On a DTensor, per batch shard with the sequence gathered
-    (``parallel/shards.on_shards``), the state placed as x."""
-    if isinstance(x, DTensor):
-        out = on_shards(lambda xl, pl, st: apply_mlstm(pl, xl, num_heads, state=st,
-                                                       decode=decode), x, p, state, batched=(1,))
-        return (shd(out[0], "batch", "seq", None), out[1]) if decode else shd(
-            out, "batch", "seq", None)
-    xi, z = torch.chunk(x @ p["w_up"], 2, dim=-1)
-    xi = shd(xi, "batch", "seq", None)
-    q, k, v, i_raw, logf = _mlstm_qkvif(p, xi)
-    if decode:
-        carry = (state["C"], state["n"], state["m"])
-        h, (C, n, m) = mlstm_cell_recurrent(q, k, v, i_raw, logf, carry=carry)
-        state = {"C": C, "n": n, "m": m}
-    else:
-        h, _ = mlstm_cell(q, k, v, i_raw, logf, carry=state)
-    b, s, H, dh = h.shape
-    hflat = h.reshape(b, s, H * dh).to(x.dtype) + xi * p["skip"]
-    out = shd((hflat * F.silu(z)) @ p["w_down"], "batch", "seq", None)
+    state).  On a DTensor, on each rank's batch shard, the sequence whole,
+    and its block of the inner channels (``parallel/shards.
+    on_channel_shards``, as ``models/mamba.apply_mamba``): ``w_up``'s
+    columns and ``w_down``'s rows of the block; x gathered for q, k and
+    the gates; decode runs on the blocks that the state's placements give,
+    and the state stays where ``mlstm_state_pspecs`` puts it."""
+    fn = functools.partial(_mlstm, num_heads=num_heads, decode=decode)
+    out, state = on_channel_shards(fn, x, p, CHANNELS, state, STATE_CHANNELS)
+    out = shd(out, "batch", "seq", None)
     return (out, state) if decode else out
 
 

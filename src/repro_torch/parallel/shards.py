@@ -99,13 +99,15 @@ def _placed_like(tree, ref: DTensor):
 
 def on_shards(fn: Callable[..., Any], x, *rest, keep: Sequence[int] = (0,),
               batched: Sequence[int] = ()):
-    """``fn(x, *rest)`` on local shards: ``x`` keeps only the tensor dims
+    """``fn(x, *rest)`` on local shards, for regions with no channel axis
+    (the sLSTM, MoE routing, attention): ``x`` keeps only the tensor dims
     ``keep`` sharded; the arguments of ``rest`` at positions ``batched``
     (recurrent states, batch first) are placed as ``x``, every other DTensor
     in ``rest`` is gathered whole; each tensor ``fn`` returns (or each leaf
     of a returned dict or tuple) is wrapped with ``x``'s placements: it must
     be sharded where x is (batch first).  On a plain ``x`` it is
-    ``fn(x, *rest)``."""
+    ``fn(x, *rest)``.  Mamba and the mLSTM run on channel shards instead
+    (``on_channel_shards``)."""
     if not isinstance(x, DTensor):
         return fn(x, *rest)
     xs = keep_only(x, keep)
@@ -122,6 +124,154 @@ def on_shards(fn: Callable[..., Any], x, *rest, keep: Sequence[int] = (0,),
         return o
 
     return wrap(out)
+
+
+class Whole:
+    """The channel view of a region that runs on whole tensors: one block
+    of every channel; ``reduce`` and ``gather`` are the identity."""
+
+    index, count = 0, 1
+
+    @staticmethod
+    def reduce(t):
+        return t
+
+    @staticmethod
+    def gather(t):
+        return t
+
+
+class ChannelShards:
+    """A region's view of its rank's block: the batch shard over the mesh
+    dims ``batch``, the ``index``-th of ``count`` equal channel blocks over
+    the mesh dims ``chan`` (row-major, as DTensor splits one tensor dim over
+    several mesh dims)."""
+
+    def __init__(self, mesh, batch: Sequence[int], chan: Sequence[int]):
+        self.mesh, self.batch, self.chan = mesh, tuple(batch), tuple(chan)
+        coord = mesh.get_coordinate()
+        self.index, self.count = 0, 1
+        for i in self.chan:
+            self.index = self.index * mesh.size(i) + coord[i]
+            self.count *= mesh.size(i)
+
+    def placed(self, dim: Optional[int], other=Replicate()) -> tuple:
+        """Placements of a block: the batch (dim 0) split over ``batch``,
+        tensor dim ``dim`` over ``chan`` (``other`` there if ``dim`` is
+        None), every other mesh dim ``Replicate()``."""
+        return tuple(Shard(0) if i in self.batch else
+                     (Shard(dim) if dim is not None else other) if i in self.chan else
+                     Replicate() for i in range(self.mesh.ndim))
+
+    def grads(self, dim: Optional[int]) -> tuple:
+        """Gradient placements of a weight used on this block: its shard
+        along ``dim`` over ``chan`` (a partial sum there if ``dim`` is None:
+        every block used the whole weight), a partial sum over ``batch``."""
+        return tuple(Partial() if i in self.batch else
+                     (Shard(dim) if dim is not None else Partial()) if i in self.chan else
+                     Replicate() for i in range(self.mesh.ndim))
+
+    def local(self, w, dim: Optional[int]):
+        """A weight's local block: its shard along ``dim`` over ``chan``,
+        whole along every other dim (the ZeRO-3 gather); all of it if
+        ``dim`` is None."""
+        if not isinstance(w, DTensor):
+            return w
+        want = tuple(Shard(dim) if i in self.chan and dim is not None else Replicate()
+                     for i in range(self.mesh.ndim))
+        ws = w if tuple(w.placements) == want else w.redistribute(self.mesh, want)
+        return ws.to_local(grad_placements=self.grads(dim))
+
+    def columns(self, w, parts: int):
+        """The columns of ``w`` (k, parts * n) that this block reads when
+        its product is cut into ``parts`` equal parts, each split over
+        ``chan``: this rank's block of every part, side by side (all of
+        ``w`` with one block)."""
+        wl = self.local(w, None)
+        if self.count == 1:
+            return wl
+        n = wl.shape[-1] // parts
+        c = n // self.count
+        return torch.cat([wl[..., k * n + self.index * c: k * n + (self.index + 1) * c]
+                          for k in range(parts)], dim=-1)
+
+    def state(self, t, dim: Optional[int]):
+        """A state leaf (batch first) as this block's local tensor, its
+        channel dim ``dim`` split over ``chan``."""
+        want = self.placed(dim)
+        ts = t if tuple(t.placements) == want else t.redistribute(self.mesh, want)
+        return ts.to_local(grad_placements=want)
+
+    def wrap(self, t, dim: Optional[int], other=Replicate()):
+        return DTensor.from_local(t, self.mesh, self.placed(dim, other), run_check=False)
+
+    def reduce(self, t):
+        """The sum over the channel blocks of a partial sum (batch first)."""
+        if self.count == 1:
+            return t
+        part = DTensor.from_local(t, self.mesh, self.placed(None, Partial()), run_check=False)
+        return part.redistribute(self.mesh, self.placed(None)).to_local()
+
+    def gather(self, t):
+        """A block of channels (the last dim) as all of them (the block
+        itself when there is one: its gradient then sums in the order of
+        the unsharded code's)."""
+        if self.count == 1:
+            return t
+        block = DTensor.from_local(t, self.mesh, self.placed(t.dim() - 1), run_check=False)
+        return block.redistribute(self.mesh, self.placed(None)).to_local(
+            grad_placements=self.placed(None, Partial()))
+
+
+def on_channel_shards(fn: Callable[..., Any], x, params: dict, channels: dict,
+                      state: Optional[dict] = None, state_channels: Optional[dict] = None):
+    """``fn(x, params, ch, state)`` on each rank's batch shard and its
+    block of a recurrent mixer's inner channels (a ``ChannelShards``
+    ``ch``), the sequence whole.  Without a state (a full sequence) the
+    blocks are where the params' rules put the inner channels: over the
+    mesh dims that split ``params[first key of channels]`` along it, and
+    x's batch stays split as it is.  With a state (recurrent states, batch
+    first, placed by their pspecs), both follow the state, which never
+    moves: the blocks are where its leaf ``first key of state_channels``
+    splits its channel dim (none under the baseline rules, whose decode
+    states are whole over 'model'), and x's batch is split as the state's.
+    ``channels`` gives each param's channel dim: an int (its block stays
+    local), ``("cols", k)`` (a weight whose product is cut into k parts,
+    each split into blocks: ``ChannelShards.columns``) or None (gathered
+    whole); params it does not name are gathered whole.  ``state_channels``
+    gives each state leaf's channel dim (None: whole).  ``fn`` returns (its
+    block's part of a sum (b, s, d) over the blocks, the new state or
+    None); the part comes back as a DTensor, partial over the blocks'
+    mesh dims, the state with the blocks' placements.  On a plain ``x``
+    every tensor is whole: ``fn(x, params, Whole, state)``."""
+    if not isinstance(x, DTensor):
+        return fn(x, params, Whole, state)
+    mesh = x.device_mesh
+    if state:
+        name, sdim = next(iter(state_channels.items()))
+        lead = state[name].placements
+        batch = [i for i, pl in enumerate(lead) if pl == Shard(0)]
+        chan = [i for i, pl in enumerate(lead) if pl == Shard(sdim)]
+    else:
+        batch = [i for i, pl in enumerate(x.placements) if pl == Shard(0)]
+        name, how = next(iter(channels.items()))
+        cdim = (params[name].dim() - 1) if isinstance(how, tuple) else how
+        chan = [i for i, pl in enumerate(params[name].placements)
+                if pl == Shard(cdim) and i not in batch]
+    ch = ChannelShards(mesh, batch, chan)
+    xb = x.redistribute(mesh, ch.placed(None))
+    local = {}
+    for k, w in params.items():
+        how = channels.get(k)
+        local[k] = ch.columns(w, how[1]) if isinstance(how, tuple) else ch.local(w, how)
+    st = None if state is None else {k: ch.state(t, state_channels.get(k))
+                                     for k, t in state.items()}
+    # every block reads all of x: its gradient is a partial sum over them
+    out, new = fn(xb.to_local(grad_placements=ch.placed(None, Partial())), local, ch, st)
+    out = ch.wrap(out, None, Partial())
+    if new is not None:
+        new = {k: ch.wrap(t, state_channels.get(k)) for k, t in new.items()}
+    return out, new
 
 
 def _as_dtensor(t, mesh):

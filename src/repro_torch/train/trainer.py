@@ -17,6 +17,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.checkpoint.manager import CheckpointInfo, CheckpointManager
 from repro_torch.data.pipeline import SyntheticLMDataset
@@ -46,13 +47,20 @@ class Trainer:
         *,
         preempt_signal: Optional[Callable[[int], bool]] = None,
         device: DeviceLike = None,
+        generator: Optional[torch.Generator] = None,
     ):
+        """``generator`` draws the params in ``init_state``, seeded with
+        ``cfg.seed`` each time; by default a CPU one, so that a trainer on
+        any device starts from the same params.  One on the card draws
+        there (``launch/train.py`` passes one on its device): other
+        values from the same seed."""
         self.model = model
         self.dataset = dataset
         self.ckpt = ckpt
         self.cfg = cfg
         self.device = resolve(device)
         self.preempt_signal = preempt_signal or (lambda step: False)
+        self.generator = generator
         self.train_step = make_train_step(model, cfg.step_cfg)
         self.params = None
         self.opt_state = None
@@ -62,7 +70,8 @@ class Trainer:
 
     # -- state ---------------------------------------------------------------
     def init_state(self):
-        self.params = self.model.init(self.cfg.seed, device=self.device)  # a seeded torch.Generator
+        gen = self.generator if self.generator is not None else torch.Generator()
+        self.params = self.model.init(generator=gen.manual_seed(self.cfg.seed), device=self.device)
         self.opt_state = init_opt_state(self.params)
         self.step = 0
 

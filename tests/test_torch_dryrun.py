@@ -30,7 +30,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.launch.dryrun import (
     EXTRAPOLATE_LENGTHS, HBM_BW, NVLINK_BW, PEAK_FLOPS, TraceRecorder, _affine, _extrapolated)
-from repro_torch.models import xlstm
+from repro_torch.models import mamba, xlstm
 from repro_torch.models.model import build_model
 from repro_torch.optim.adamw import init_opt_state
 from repro_torch.train.train_step import TrainStepConfig, make_train_step
@@ -142,11 +142,10 @@ def test_only_attention_free_train_and_prefill_cells_extrapolate():
     assert EXTRAPOLATE_LENGTHS == (2 * xlstm.CHUNK, 3 * xlstm.CHUNK)
 
 
-def _xlstm_step_counts(kind: str, n: int) -> dict:
-    """The recorder's counts of one train step of a reduced one-block xLSTM
-    (``kind``) over ``n`` tokens, on fake tensors."""
-    cfg = dataclasses.replace(get_config("xlstm-1.3b").reduced(), num_layers=1,
-                              block_pattern=(kind,))
+def _xlstm_step_counts(kind: str, n: int, arch: str = "xlstm-1.3b") -> dict:
+    """The recorder's counts of one train step of a reduced one-block model
+    of ``arch`` (its block ``kind``) over ``n`` tokens, on fake tensors."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), num_layers=1, block_pattern=(kind,))
     model = build_model(cfg)
     fake = FakeTensorMode(allow_non_fake_inputs=True)
     with fake:
@@ -182,6 +181,24 @@ def test_mlstm_counts_are_affine_from_the_second_chunk(monkeypatch):
     assert not _line(c, 16, 32, 96, work) and not _line(c, 8, 16, 96, work)
     assert c[48]["temp_peak_bytes"] < c[64]["temp_peak_bytes"]
     assert _line(c, 64, 80, 96, ("temp_peak_bytes",))
+
+
+def test_mamba_counts_are_affine_from_the_second_chunk(monkeypatch):
+    """A traced train step of a reduced jamba's Mamba block: from the
+    second chunk on its FLOPs and bytes grow by the same amount a chunk.
+    Each chunk's scan is recomputed in the backward, so its (b, l, d_in, N)
+    passes are not kept from chunk to chunk: the peak grows by less than
+    two such tensors a chunk (the carried state and the sequence-wide
+    activations), where the whole doubling scan of every chunk (log2(l)
+    passes of two tensors) was kept before.  The chunk is cut to 16
+    tokens."""
+    monkeypatch.setattr(mamba, "CHUNK", 16)
+    c = {n: _xlstm_step_counts("mamba", n, "jamba-v0.1-52b") for n in (16, 32, 48, 64, 96)}
+    work = ("flops", "bytes")
+    assert _line(c, 32, 48, 64, work) and _line(c, 32, 48, 96, work)
+    cfg = get_config("jamba-v0.1-52b").reduced()
+    one_pass = 2 * 16 * cfg.mamba_expand * cfg.d_model * cfg.mamba_d_state * 4  # f32, b = 2
+    assert (c[96]["temp_peak_bytes"] - c[64]["temp_peak_bytes"]) / 2 < 2 * one_pass
 
 
 def test_slstm_counts_are_affine_in_the_length():

@@ -162,3 +162,52 @@ def test_entry_points_default_to_the_card(main, argv):
         pytest.skip("a card is present: the default device resolves")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(argv)
+
+
+@pytest.mark.parametrize("launcher", ["serve", "train"])
+def test_launchers_draw_weights_on_their_device(launcher, monkeypatch, capsys):
+    """``launch.serve`` and ``launch.train`` draw the model's weights with
+    a generator made on the device they run on (seeded by ``--seed`` /
+    ``TrainerConfig.seed``), not the CPU generator that ``Model.init``
+    uses by default.  Here on the CPU: every generator made is recorded
+    with the device it was asked for, the launcher's device is checked
+    where ``resolve`` gives it, and ``Model.init`` is watched for the
+    generator it draws with."""
+    from repro_torch.launch import train as port_train
+    from repro_torch.models.model import Model
+
+    made, resolved, drawn = [], [], []
+    real_generator, real_init = torch.Generator, Model.init
+
+    def generator(*args, **kw):
+        made.append(kw.get("device", args[0] if args else None))
+        return real_generator(*args, **kw)
+
+    def init(self, seed=0, *, device=None, generator=None):
+        drawn.append((generator, device))
+        return real_init(self, seed, device=device, generator=generator)
+
+    mod = port_serve if launcher == "serve" else port_train
+    real_resolve = mod.resolve
+
+    def resolve(dev):
+        resolved.append(real_resolve(dev))
+        return resolved[-1]
+
+    monkeypatch.setattr(torch, "Generator", generator)
+    monkeypatch.setattr(Model, "init", init)
+    monkeypatch.setattr(mod, "resolve", resolve)
+    if launcher == "serve":
+        argv = ["--smoke", "--device", "cpu", "--batch", "1", "--prompt-len", "4",
+                "--tokens", "2", "--seed", "3"]
+    else:
+        argv = ["--smoke", "--device", "cpu", "--steps", "1", "--batch", "1", "--seq", "8",
+                "--save-every", "10"]
+    assert mod.main(argv) == 0
+    capsys.readouterr()
+    assert resolved == [torch.device("cpu")]
+    (gen, device), = drawn
+    assert gen is not None and gen.device == device == resolved[0]
+    assert resolved[0] in made  # the generator was asked for on the launcher's device
+    seed = 3 if launcher == "serve" else 0
+    assert gen.initial_seed() == seed

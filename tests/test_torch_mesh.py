@@ -28,6 +28,7 @@ SRC = os.path.join(HERE, "..", "src")
 ARCH = "qwen3-1.7b"
 B, S = 2, 32
 ATOL_LOGITS, ATOL_LEAF = 1e-5, 1e-4
+WORKER_TIMEOUT = 400
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -93,7 +94,9 @@ def _family_params(work: str, arch: str) -> dict:
 
 
 def _worker(rank: int, work: str) -> None:
-    """One rank of the 2-rank world (run by ``test_two_rank_world``)."""
+    """One rank of the 2-rank world (run by the ``world`` fixture)."""
+    from datetime import timedelta
+
     import torch.distributed as dist
 
     from repro_torch.checkpoint.manager import CheckpointManager
@@ -111,7 +114,7 @@ def _worker(rank: int, work: str) -> None:
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(os.path.join(work, "store"), 2),
-                            rank=rank, world_size=2)
+                            rank=rank, world_size=2, timeout=timedelta(minutes=3))
     out = {}
     mesh = make_mesh((1, 2), ("data", "model"), "cpu")
     cfg = get_config(ARCH).reduced()
@@ -344,13 +347,25 @@ def world(tmp_path_factory):
     info = CheckpointManager(os.path.join(work, "ckpt"), "job0").save(3, state)
     env = dict(os.environ, PYTHONPATH=SRC)
     code = f"import sys; sys.path.insert(0, {HERE!r}); import test_torch_mesh as t; t._worker(int(sys.argv[1]), sys.argv[2])"
+    # each rank writes to a file: a rank that fills a pipe no one reads
+    # would stall the other in a collective
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in (0, 1)]
     procs = [subprocess.Popen([sys.executable, "-c", code, str(r), work], env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for r in (0, 1)]
-    ref = _references(family_jparams)  # while the workers run
-    logs = [p.communicate(timeout=400) for p in procs]
-    for p, (_, err) in zip(procs, logs):
-        assert p.returncode == 0, err[-3000:]
+                              stdout=logs[r], stderr=subprocess.STDOUT) for r in (0, 1)]
+    try:
+        ref = _references(family_jparams)  # while the workers run
+        for p in procs:
+            p.wait(timeout=WORKER_TIMEOUT)
+    finally:
+        for p in procs:  # neither rank outlives a timeout or a failure
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        with open(os.path.join(work, f"rank{r}.log")) as f:
+            assert p.returncode == 0, f.read()[-3000:]
     with open(os.path.join(work, "meta.json")) as f:
         meta = json.load(f)
     with np.load(os.path.join(work, "out.npz")) as z:
@@ -468,9 +483,10 @@ np.savez({str(tmp_path / "want.npz")!r}, **out)
 """
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=2")
-    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
-                       timeout=300)
-    assert r.returncode == 0, r.stderr[-3000:]
+    with open(tmp_path / "ref.log", "w") as log:  # killed by run() on its timeout
+        r = subprocess.run([sys.executable, "-c", code], env=env, stdout=log,
+                           stderr=subprocess.STDOUT, timeout=300)
+    assert r.returncode == 0, (tmp_path / "ref.log").read_text()[-3000:]
     with np.load(tmp_path / "want.npz") as want:
         for k in ("w", "b"):
             np.testing.assert_array_equal(world["out"]["crosspod/" + k], want[k][0], err_msg=k)

@@ -412,6 +412,29 @@ def test_chip_smoke_lifecycle_on_cpu(reduced, tmp_path):
     assert chip_smoke.saves_in(0, 12, 4) == 4 and chip_smoke.saves_in(12, 24, 4) == 4
 
 
+def test_chip_smoke_remat_microbatch_and_delta_on_cpu(reduced, tmp_path, monkeypatch):
+    """chip_smoke's remat "none" / "dots", micro-batch and delta-int8
+    checks, the ones the card runs at full width, on the CPU at the reduced
+    size, where nothing launches a kernel (the counts they derive for the
+    card are held by the test above): remat "none" and "dots" give "full"'s
+    loss and gradients, two micro-batches the one-batch step's, and the
+    delta-int8 restore the same leaves on both sides."""
+    def counted(fn):
+        ops.reset_launch_counts()
+        out = fn()
+        return out, ops.launch_counts(), 0.0
+
+    none = lambda *args, **kw: dict.fromkeys(ops.launch_counts(), 0)  # noqa: E731
+    monkeypatch.setattr(chip_smoke, "counted", counted)
+    monkeypatch.setattr(chip_smoke, "step_launches", none)
+    monkeypatch.setattr(chip_smoke, "train_launches", none)
+    monkeypatch.setattr(chip_smoke, "TRAIN_BATCH", B)
+    monkeypatch.setattr(chip_smoke, "TRAIN_SEQ", S)
+    cfg, params = reduced[3], reduced[5]
+    assert not any(chip_smoke.check_remat_and_microbatch(cfg, params, "cpu").values())
+    assert not any(chip_smoke.run_delta_lifecycle(cfg, str(tmp_path), "cpu").values())
+
+
 def test_launch_train_on_cpu(tmp_path, capsys, monkeypatch):
     rc = train_launcher.main(["--smoke", "--steps", "4", "--batch", "2", "--seq", "16",
                               "--device", "cpu", "--ckpt-dir", str(tmp_path),
