@@ -3696,11 +3696,14 @@ def phase_archs3(dev) -> dict:
 MESH_STEPS, MESH_PREEMPT = 8, 4  # micro-lm: site A to step 4, site B (on the mesh) to 8
 MESH_ARCH = "qwen3-1.7b"
 MESH_PREFILL_BATCH, MESH_PREFILL_SEQ = 2, 512
-MESH_PROMPT, MESH_NEW = 16, 8  # greedy decode of 2 x 16 prompt tokens + 8 new
+MESH_PROMPT, MESH_NEW = 8, 4  # greedy decode of 2 x 8 prompt tokens + 4 new
 MESH_DRYRUN = ("qwen3-1.7b", "decode_32k", "single")
 # the recurrent mixers on channel blocks, at train_4k's sequence (16 Mamba
-# / mLSTM chunks), and an attention block beside them: (arch, block)
-MESH_BLOCKS = (("jamba-v0.1-52b", 0), ("jamba-v0.1-52b", 4), ("xlstm-1.3b", 0))
+# / mLSTM chunks), an attention block beside them, and the MoE on expert
+# blocks after a Mamba mixer (jamba's b1) and after attention (phi3.5's
+# b0): (arch, block)
+MESH_BLOCKS = (("jamba-v0.1-52b", 0), ("jamba-v0.1-52b", 4), ("xlstm-1.3b", 0),
+               ("jamba-v0.1-52b", 1), ("phi3.5-moe-42b-a6.6b", 0))
 MESH_BLOCK_SEQ = 4096
 
 
@@ -3870,8 +3873,9 @@ def run_mesh_qwen3(mesh, dev) -> dict:
 def run_mesh_blocks(mesh, dev) -> dict:
     """Each of MESH_BLOCKS drawn on the card at full width in bf16: its
     forward and backward over 1 x MESH_BLOCK_SEQ tokens unsharded, then on
-    the 1 x 1 mesh (Mamba and the mLSTM through on_channel_shards, the
-    attention through K1 on local shards), the output and the gradients of
+    the 1 x 1 mesh (Mamba and the mLSTM through on_channel_shards, the MoE
+    on its one block of experts through the same, the attention through K1
+    on local shards), the output and the gradients of
     x and of every param bit-identical; each run counted (K1 bf16 and its
     backward once in an attention block) and its peak allocated memory
     printed.  Returns the launches."""
@@ -3882,6 +3886,7 @@ def run_mesh_blocks(mesh, dev) -> dict:
         kind = cfg.block_pattern[i]
         gen = torch.Generator(device=dev).manual_seed(40 + i)
         p = tfm.init_block(gen, cfg, kind, tfm._is_moe_pos(cfg, i), dev)
+        label = f"{kind} + MoE, {cfg.num_experts} experts" if "moe" in p else kind
         x = torch.randn((1, MESH_BLOCK_SEQ, cfg.d_model), generator=gen, device=dev).to(
             torch.bfloat16)
         cot = torch.randn(x.shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -3904,7 +3909,7 @@ def run_mesh_blocks(mesh, dev) -> dict:
             before = torch.cuda.memory_allocated()
             out, counts, wall = counted(fn)
             if counts != exactly(counts, **expect):
-                raise RuntimeError(f"[mesh] {arch} b{i} ({kind}): launch counts {counts}, "
+                raise RuntimeError(f"[mesh] {arch} b{i} ({label}): launch counts {counts}, "
                                    f"expected {expect or 'none'}")
             for k, n in counts.items():
                 total[k] = total.get(k, 0) + n
@@ -3921,9 +3926,9 @@ def run_mesh_blocks(mesh, dev) -> dict:
         for j, (a, b) in enumerate(zip(got, want)):
             if not torch.equal(a, b):
                 what = "output" if j == 0 else "grad of x" if j == 1 else f"grad {j - 2}"
-                raise RuntimeError(f"[mesh] {arch} b{i} ({kind}) on the mesh: its {what} differs "
+                raise RuntimeError(f"[mesh] {arch} b{i} ({label}) on the mesh: its {what} differs "
                                    f"from unsharded by {float((a.float() - b.float()).abs().max())}")
-        log(f"[mesh] {arch} block b{i} ({kind}) in bf16, forward and backward over 1 x "
+        log(f"[mesh] {arch} block b{i} ({label}) in bf16, forward and backward over 1 x "
             f"{MESH_BLOCK_SEQ} tokens: unsharded {wall_u:.3f} s, peak allocated {gib(peak_u)}; on "
             f"the 1 x 1 mesh {wall_d:.3f} s, peak allocated {gib(peak_d)}; output and all "
             f"{len(want) - 1} gradients bit-identical; launches {counts} each")

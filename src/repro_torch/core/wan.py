@@ -461,25 +461,34 @@ class WanTopology:
         smallest per-resource headroom-per-unfrozen-flow increment,
         freeze the flows crossing each resource that saturates, and
         redistribute the residual among the rest until every flow is
-        frozen.  Terminates after at most ``#resources`` rounds (every
-        round saturates at least one finite resource).  Flows through a
-        zero-capacity resource freeze at 0 in the first round."""
+        frozen.  Flows through a zero-capacity resource freeze at 0 in the
+        first round.
+
+        A round that moves no finite resource's ``alloc`` and freezes no
+        flow would repeat forever (a subnormal capacity, whose increment
+        per flow rounds to 0 or is lost beside ``alloc``): such a round
+        freezes the flows of the resources that set its increment, which
+        are full to the last bit.  Every other round is the reference's,
+        so wherever its loop ends the rates are its own, bit for bit."""
         rate = np.zeros(m)
         frozen = np.zeros(m, dtype=bool)
         alloc = np.zeros(len(caps))
         while not frozen.all():
             best = float("inf")
             n_active = [0] * len(caps)
+            incs = {}
             for k, mem in enumerate(members):
                 n_act = sum(1 for i in mem if not frozen[i])
                 n_active[k] = n_act
                 if n_act and np.isfinite(caps[k]):
                     inc = max(0.0, caps[k] - alloc[k]) / n_act
+                    incs[k] = inc
                     if inc < best:
                         best = inc
             if not np.isfinite(best):  # only inf-capacity resources left
                 break  # unreachable with finite NICs; safety net
             rate[~frozen] += best
+            before, n_frozen = alloc.copy(), int(frozen.sum())
             for k, mem in enumerate(members):
                 if not n_active[k]:
                     continue
@@ -487,6 +496,10 @@ class WanTopology:
                 if np.isfinite(caps[k]) and alloc[k] >= caps[k] * (1 - 1e-12):
                     for i in mem:
                         frozen[i] = True
+            if int(frozen.sum()) == n_frozen and all(alloc[k] == before[k] for k in incs):
+                for k, inc in incs.items():
+                    if inc == best:
+                        frozen[members[k]] = True
         return rate
 
     def advertised_matrix(

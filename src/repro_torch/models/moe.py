@@ -1,11 +1,19 @@
-"""Mixture-of-Experts MLP with top-k routing (port of ``repro/models/moe.py``).
+"""Mixture-of-Experts MLP with top-k routing and expert parallelism (port
+of ``repro/models/moe.py``).
 
 Dense-dispatch formulation (Switch/Mixtral-reference style): tokens are
 combined into per-expert buffers with an einsum against the dispatch mask.
 The JAX package computes MoE outside any Pallas kernel, so this is plain
-PyTorch on every device.  ``apply_moe_capacity``, the block-local capacity
-dispatch, is a function of its own that no model path selects yet (the
-reference's ``REPRO_MOE_IMPL`` environment override is not copied).
+PyTorch on every device.  ``apply_moe(impl=)`` or the ``REPRO_MOE_IMPL``
+environment variable selects the block-local capacity dispatch
+(``apply_moe_capacity``) instead, as in the reference.
+
+On DTensors the experts stay where the param rules put them: with the
+expert dim split over 'model' (EP), each rank runs its block of experts on
+its batch shard, the sequence whole (``parallel/shards.on_channel_shards``
+with the expert dim as the channel); with it whole (``moe-blocked``, or
+an expert count the mesh does not divide), each rank runs every expert on
+its batch and sequence shard.
 
 Top-k selections are deterministic, as ``jax.lax.top_k``'s: the larger
 value first, and of equal values the lower index first.  ``torch.topk``
@@ -14,6 +22,8 @@ them exactly 0, would expose.
 """
 from __future__ import annotations
 
+import functools
+import os
 from typing import Tuple
 
 import torch
@@ -21,7 +31,9 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import activation, truncated_normal
 from repro_torch.parallel.compat import DTensor
-from repro_torch.parallel.shards import full_local, keep_only, replicated, shard_mean, wrap_like
+from repro_torch.parallel.shards import (
+    Whole, channel_dims, full_local, keep_only, on_channel_shards, replicated, shard_mean,
+    wrap_like)
 from repro_torch.parallel.sharding import shd
 
 
@@ -69,29 +81,73 @@ def router_probs(p: dict, x: torch.Tensor, top_k: int):
     return combine, dispatch, _aux(frac_tokens, frac_probs, probs.shape[-1])
 
 
-def apply_moe(p: dict, x: torch.Tensor, *, top_k: int, act: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (b, s, d) -> (y, aux_loss), by the reference's dense dispatch.
-
-    On a DTensor, routing and the experts run on each rank's tokens (batch
-    and sequence stay sharded, the expert weights are gathered): top-k
-    runs along the expert dim, which no rank splits; the aux loss takes
-    the per-expert fractions' means over all shards."""
-    if isinstance(x, DTensor):
-        xs = keep_only(x, (0, 1))
-        xl = xs.to_local()
-        pl = full_local(p, xs)
-        combine, dispatch, probs = _route(pl, xl, top_k)
-        y = _experts(pl, xl, combine, dispatch, act)
-        frac_tokens = shard_mean(torch.mean(dispatch, dim=(0, 1)), xs, (0, 1)) / top_k
-        frac_probs = shard_mean(torch.mean(probs, dim=(0, 1)), xs, (0, 1))
-        aux = replicated(_aux(frac_tokens, frac_probs, probs.shape[-1]).float(), xs.device_mesh)
-        return shd(wrap_like(y, xs), "batch", "seq", None), aux
-    combine, dispatch, aux = router_probs(p, x, top_k)
-    return _experts(p, x, combine, dispatch, act), aux.float()
+# the expert weights' expert dim: the channel of on_channel_shards (the
+# router, unnamed, is gathered whole)
+EXPERTS = {"wi": 0, "wg": 0, "wo": 0}
 
 
-def _experts(p: dict, x, combine, dispatch, act: str):
-    # Dispatch: (E, b, s, d) buffers.
+def apply_moe(p: dict, x: torch.Tensor, *, top_k: int, act: str,
+              impl: str = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (b, s, d) -> (y, aux_loss).  impl: 'dense' (reference dispatch) or
+    'capacity' (``apply_moe_capacity``); ``REPRO_MOE_IMPL`` overrides the
+    default.
+
+    On a DTensor whose expert weights are split along the expert dim (EP,
+    the baseline rules), each rank routes its batch shard's tokens, the
+    sequence gathered, over all experts (top-k needs every probability) and
+    runs only its block of E/M experts (``_expert_block``): its part of y
+    is reduce-scattered into the residual's placement, its part of the aux
+    loss summed over the blocks.  Otherwise routing and the experts,
+    gathered whole, run on each rank's batch and sequence shard."""
+    impl = impl or os.environ.get("REPRO_MOE_IMPL", "dense")
+    if impl == "capacity":
+        return apply_moe_capacity(p, x, top_k=top_k, act=act)
+    fn = functools.partial(_expert_block, top_k=top_k, act=act)
+    if not isinstance(x, DTensor):
+        y, _, aux = fn(x, p, Whole, None)
+        return y, aux
+    if channel_dims(x, p["wi"], 0):
+        y, _, aux = on_channel_shards(fn, x, p, EXPERTS)
+        return shd(y, "batch", "seq", None), replicated(aux, x.device_mesh)
+    return _on_token_shards(functools.partial(_experts, act=act), p, x, top_k)
+
+
+def _expert_block(x, p, ch, state, *, top_k: int, act: str):
+    """The dense dispatch on one block of experts (``ch``'s: ``p``'s expert
+    weights hold that block, the router all experts): (this block's part of
+    y, None, the aux loss).  The aux loss's sum over experts is taken per
+    block and summed over the blocks, so that its gradient arrives once;
+    its per-expert means are over the batch shards."""
+    combine, dispatch, probs = _route(p, x, top_k)
+    num_experts = probs.shape[-1]
+    if ch.count > 1:
+        n = num_experts // ch.count
+        block = slice(ch.index * n, (ch.index + 1) * n)
+        combine, dispatch, probs = combine[..., block], dispatch[..., block], probs[..., block]
+    y = _experts(p, x, combine, dispatch, act=act)
+    frac_tokens = ch.batch_mean(torch.mean(dispatch, dim=(0, 1))) / top_k
+    frac_probs = ch.batch_mean(torch.mean(probs, dim=(0, 1)))
+    return y, None, ch.total(_aux(frac_tokens, frac_probs, num_experts)).float()
+
+
+def _on_token_shards(run, p: dict, x, top_k: int):
+    """``run(p, x, combine, dispatch)`` (the experts) on each rank's batch
+    and sequence shard of ``x``, routed there, the params gathered whole:
+    (y placed as the residual, the aux loss, its per-expert fractions'
+    means taken over all shards, replicated)."""
+    xs = keep_only(x, (0, 1))
+    xl = xs.to_local()
+    pl = full_local(p, xs)
+    combine, dispatch, probs = _route(pl, xl, top_k)
+    y = run(pl, xl, combine, dispatch)
+    frac_tokens = shard_mean(torch.mean(dispatch, dim=(0, 1)), xs, (0, 1)) / top_k
+    frac_probs = shard_mean(torch.mean(probs, dim=(0, 1)), xs, (0, 1))
+    aux = replicated(_aux(frac_tokens, frac_probs, probs.shape[-1]).float(), xs.device_mesh)
+    return shd(wrap_like(y, xs), "batch", "seq", None), aux
+
+
+def _experts(p: dict, x, combine, dispatch, *, act: str):
+    # Dispatch: (E, b, s, d) buffers (a block of experts on a mesh).
     expert_in = torch.einsum("bse,bsd->ebsd", dispatch.to(x.dtype), x)
     expert_in = shd(expert_in, "expert_act", "batch", None, None)
     h = activation(act)(torch.einsum("ebsd,edf->ebsf", expert_in, p["wg"]))
@@ -110,14 +166,30 @@ def apply_moe_capacity(
     """Block-local capacity dispatch: tokens are grouped into seq-blocks of
     ``block``, and each expert takes its top-C tokens by gate within each
     block (C = block·top_k/E·cf); overflow tokens are dropped per expert
-    (Switch-style), as are zero-gate picks."""
-    b, s, d = x.shape
+    (Switch-style), as are zero-gate picks.
+
+    On a DTensor it runs on each rank's batch and sequence shard with the
+    experts whole (what the ``moe-blocked`` rules place): the blocks are
+    those of the whole sequence only if they lie inside the shards, so a
+    rank's sequence that is not a multiple of the block raises a
+    ValueError."""
+    bs = min(block, x.shape[1])
+    run = functools.partial(_capacity, act=act, block=bs, top_k=top_k,
+                            capacity_factor=capacity_factor)
+    if isinstance(x, DTensor):
+        return _on_token_shards(run, p, x, top_k)
     combine, dispatch, aux = router_probs(p, x, top_k)  # (b,s,E) f32
+    return run(p, x, combine, dispatch), aux.float()
+
+
+def _capacity(p: dict, x, combine, dispatch, *, act: str, block: int, top_k: int,
+              capacity_factor: float):
+    b, s, d = x.shape
     E = dispatch.shape[-1]
-    bs = min(block, s)
-    if s % bs:
-        raise ValueError(f"sequence {s} is not a multiple of the block {bs}")
-    nb = s // bs
+    if s % block:
+        raise ValueError(f"sequence {s} is not a multiple of the block {block} (on a mesh, a "
+                         f"rank's shard of the sequence, whose blocks must be the whole one's)")
+    bs, nb = block, s // block
     cap = int(max(1, min(bs, round(bs * top_k / E * capacity_factor))))
     gates = (combine * dispatch).reshape(b, nb, bs, E)
     topv, topi = topk_stable(gates.transpose(2, 3), cap)  # (b, nb, E, C) block-local ids
@@ -134,5 +206,4 @@ def apply_moe_capacity(
     # scatter-add back inside each block
     y = torch.zeros((b, nb, bs, d), dtype=x.dtype, device=x.device)
     y = y.index_put((bi, ni, topi), out, accumulate=True)
-    return shd(y.reshape(b, s, d), "batch", "seq", None), aux.float()
-
+    return shd(y.reshape(b, s, d), "batch", "seq", None)

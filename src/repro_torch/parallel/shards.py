@@ -8,8 +8,11 @@ local in the batch (and, for routing, in the sequence): ``on_shards``
 redistributes its activation so that only those dims stay sharded, gathers
 the params it reads (the per-layer ZeRO-3 gather of the FSDP rules), runs
 the plain code on the local tensors and wraps the result with the
-activation's placements.  On plain tensors every helper is the identity, so
-a model on one device runs exactly as before.
+activation's placements.  ``on_channel_shards`` runs a region on blocks of
+its channels where the param rules split them (Mamba's and the mLSTM's
+inner channels, the MoE's experts), the sequence whole, each block's part
+of the output a partial sum.  On plain tensors every helper is the
+identity, so a model on one device runs exactly as before.
 """
 from __future__ import annotations
 
@@ -67,22 +70,32 @@ def replicated(local: torch.Tensor, mesh):
     return DTensor.from_local(local, mesh, (Replicate(),) * mesh.ndim, run_check=False)
 
 
+def _sum_over(local: torch.Tensor, mesh, dims: Sequence[int]) -> torch.Tensor:
+    """The sum over the mesh dims ``dims`` of each rank's ``local`` value: a
+    plain tensor every rank holds whole.  DTensor's backward of the
+    reduction passes the gradient through unscaled, as a sum's must."""
+    parts = tuple(Partial() if i in dims else Replicate() for i in range(mesh.ndim))
+    out = DTensor.from_local(local, mesh, parts, run_check=False)
+    return out.redistribute(mesh, (Replicate(),) * mesh.ndim).to_local()
+
+
+def _mean_over(local_mean: torch.Tensor, mesh, dims: Sequence[int]) -> torch.Tensor:
+    """The mean over the mesh dims ``dims`` of each rank's ``local_mean``
+    (``local_mean`` itself when they hold one rank): a sum, then / n."""
+    n = 1
+    for i in dims:
+        n *= mesh.size(i)
+    if n == 1:
+        return local_mean
+    return _sum_over(local_mean, mesh, dims) / n
+
+
 def shard_mean(local_mean: torch.Tensor, ref: DTensor, dims: Sequence[int]) -> torch.Tensor:
     """The mean over all shards of a per-shard mean taken over ``ref``'s
     tensor dims ``dims`` (even shards): a replicated plain tensor.  With one
     shard it is ``local_mean`` itself."""
-    mesh = ref.device_mesh
     split = [i for i, pl in enumerate(ref.placements) if isinstance(pl, Shard) and pl.dim in dims]
-    n = 1
-    for i in split:
-        n *= mesh.size(i)
-    if n == 1:
-        return local_mean
-    # a sum, then / n: DTensor's backward of a reduction passes the gradient
-    # through unscaled, right for a sum and not for an average
-    parts = tuple(Partial() if i in split else Replicate() for i in range(mesh.ndim))
-    out = DTensor.from_local(local_mean, mesh, parts, run_check=False)
-    return out.redistribute(mesh, (Replicate(),) * mesh.ndim).to_local() / n
+    return _mean_over(local_mean, ref.device_mesh, split)
 
 
 def _placed_like(tree, ref: DTensor):
@@ -128,7 +141,8 @@ def on_shards(fn: Callable[..., Any], x, *rest, keep: Sequence[int] = (0,),
 
 class Whole:
     """The channel view of a region that runs on whole tensors: one block
-    of every channel; ``reduce`` and ``gather`` are the identity."""
+    of every channel; ``reduce``, ``gather``, ``total`` and ``batch_mean``
+    are the identity."""
 
     index, count = 0, 1
 
@@ -138,6 +152,14 @@ class Whole:
 
     @staticmethod
     def gather(t):
+        return t
+
+    @staticmethod
+    def total(t):
+        return t
+
+    @staticmethod
+    def batch_mean(t):
         return t
 
 
@@ -206,11 +228,23 @@ class ChannelShards:
         return DTensor.from_local(t, self.mesh, self.placed(dim, other), run_check=False)
 
     def reduce(self, t):
-        """The sum over the channel blocks of a partial sum (batch first)."""
+        """The sum over the channel blocks of a partial sum (batch first).
+        Each block reads the sum for its own channels, so the gradient it
+        hands back is a partial sum too, summed over the blocks."""
         if self.count == 1:
             return t
         part = DTensor.from_local(t, self.mesh, self.placed(None, Partial()), run_check=False)
-        return part.redistribute(self.mesh, self.placed(None)).to_local()
+        return part.redistribute(self.mesh, self.placed(None)).to_local(
+            grad_placements=self.placed(None, Partial()))
+
+    def total(self, t):
+        """The sum over the channel blocks of a value that is the same on
+        every rank of a block's batch shards (a scalar of the whole batch)."""
+        return t if self.count == 1 else _sum_over(t, self.mesh, self.chan)
+
+    def batch_mean(self, t):
+        """The mean over the batch shards of a per-shard mean."""
+        return _mean_over(t, self.mesh, self.batch)
 
     def gather(self, t):
         """A block of channels (the last dim) as all of them (the block
@@ -223,12 +257,20 @@ class ChannelShards:
             grad_placements=self.placed(None, Partial()))
 
 
+def channel_dims(x: DTensor, w: DTensor, dim: int) -> list:
+    """The mesh dims that split ``w``'s tensor dim ``dim`` and not ``x``'s
+    batch (dim 0): where ``on_channel_shards`` puts the blocks."""
+    batch = [i for i, pl in enumerate(x.placements) if pl == Shard(0)]
+    return [i for i, pl in enumerate(w.placements) if pl == Shard(dim) and i not in batch]
+
+
 def on_channel_shards(fn: Callable[..., Any], x, params: dict, channels: dict,
                       state: Optional[dict] = None, state_channels: Optional[dict] = None):
     """``fn(x, params, ch, state)`` on each rank's batch shard and its
-    block of a recurrent mixer's inner channels (a ``ChannelShards``
-    ``ch``), the sequence whole.  Without a state (a full sequence) the
-    blocks are where the params' rules put the inner channels: over the
+    block of a region's channels (a ``ChannelShards`` ``ch``: a recurrent
+    mixer's inner channels, the MoE's experts), the sequence whole.
+    Without a state (a full sequence) the
+    blocks are where the params' rules put the channels: over the
     mesh dims that split ``params[first key of channels]`` along it, and
     x's batch stays split as it is.  With a state (recurrent states, batch
     first, placed by their pspecs), both follow the state, which never
@@ -241,7 +283,8 @@ def on_channel_shards(fn: Callable[..., Any], x, params: dict, channels: dict,
     whole); params it does not name are gathered whole.  ``state_channels``
     gives each state leaf's channel dim (None: whole).  ``fn`` returns (its
     block's part of a sum (b, s, d) over the blocks, the new state or
-    None); the part comes back as a DTensor, partial over the blocks'
+    None) and, after them, anything else, which comes back as it is; the
+    part comes back as a DTensor, partial over the blocks'
     mesh dims, the state with the blocks' placements.  On a plain ``x``
     every tensor is whole: ``fn(x, params, Whole, state)``."""
     if not isinstance(x, DTensor):
@@ -256,8 +299,7 @@ def on_channel_shards(fn: Callable[..., Any], x, params: dict, channels: dict,
         batch = [i for i, pl in enumerate(x.placements) if pl == Shard(0)]
         name, how = next(iter(channels.items()))
         cdim = (params[name].dim() - 1) if isinstance(how, tuple) else how
-        chan = [i for i, pl in enumerate(params[name].placements)
-                if pl == Shard(cdim) and i not in batch]
+        chan = channel_dims(x, params[name], cdim)
     ch = ChannelShards(mesh, batch, chan)
     xb = x.redistribute(mesh, ch.placed(None))
     local = {}
@@ -267,11 +309,11 @@ def on_channel_shards(fn: Callable[..., Any], x, params: dict, channels: dict,
     st = None if state is None else {k: ch.state(t, state_channels.get(k))
                                      for k, t in state.items()}
     # every block reads all of x: its gradient is a partial sum over them
-    out, new = fn(xb.to_local(grad_placements=ch.placed(None, Partial())), local, ch, st)
+    out, new, *rest = fn(xb.to_local(grad_placements=ch.placed(None, Partial())), local, ch, st)
     out = ch.wrap(out, None, Partial())
     if new is not None:
         new = {k: ch.wrap(t, state_channels.get(k)) for k, t in new.items()}
-    return out, new
+    return (out, new, *rest)
 
 
 def _as_dtensor(t, mesh):
