@@ -15,6 +15,7 @@ from typing import Any, List, Optional
 
 import torch
 
+from repro_torch import spans
 from repro_torch.checkpoint import serializer as ser
 from repro_torch.convert import flatten_with_paths, params_to_numpy
 from repro_torch.device import DeviceLike
@@ -85,18 +86,28 @@ class CheckpointManager:
             self._pending.join()
             self._pending = None
 
+    @spans.spanned("ckpt.save")
     def save(self, step: int, state, *, mode: Optional[str] = None) -> CheckpointInfo:
         """Serialize and persist ``state`` (a tree of tensors or arrays).
         Quantization runs on the device the state lies on, on the caller's
         thread; with ``async_save`` only compression and IO run on the
         writer thread, which reads a state on the CPU in place: leave it
         unmodified until ``wait()``.  delta-int8 uses the previous save as
-        base."""
+        base.
+
+        Spans: ``ckpt.save`` holds ``ckpt.to_host``, ``ckpt.quantize``
+        (``serializer.encode_tree``), ``ckpt.compress`` (``serializer.pack``)
+        and ``ckpt.write``; under ``async_save`` the last two lie in a
+        ``ckpt.save`` of the writer thread's own (a profiler sees it where
+        it records every thread).  Counters: ``ckpt.bytes_state`` (the tree
+        before encoding) and ``ckpt.bytes_written`` (the file)."""
         mode = mode or self.mode
         t0 = time.time()
         tensors = [x for _, x in flatten_with_paths(state) if isinstance(x, torch.Tensor)]
         device = tensors[0].device if tensors else "cpu"  # quantize where the state lies
-        host_state = params_to_numpy(state)  # device -> host (gather)
+        spans.count("ckpt.bytes_state", ser.tree_bytes(state))
+        with spans.span("ckpt.to_host"):
+            host_state = params_to_numpy(state)  # device -> host (gather)
         base = self._base_cache if mode == "delta-int8" else None
         if mode == "delta-int8" and base is None:
             mode = "int8"  # first checkpoint has no base
@@ -107,16 +118,19 @@ class CheckpointManager:
             d = self._step_dir(step)
             os.makedirs(d, exist_ok=True)
             path = os.path.join(d, "checkpoint.bin")
-            with open(path, "wb") as f:
+            with spans.span("ckpt.write"), open(path, "wb") as f:
                 ser.write_to(f, payload)
-            return CheckpointInfo(self.job, step, path, os.path.getsize(path), mode, time.time() - t0)
+            nbytes = os.path.getsize(path)
+            spans.count("ckpt.bytes_written", nbytes)
+            return CheckpointInfo(self.job, step, path, nbytes, mode, time.time() - t0)
 
         self.wait()
         if self.async_save:
             info = CheckpointInfo(self.job, step, "", 0, mode, 0.0)
 
             def run():
-                done = _write()
+                with spans.span("ckpt.save"):
+                    done = _write()
                 info.path, info.nbytes, info.wall_time_s = done.path, done.nbytes, done.wall_time_s
 
             self._pending = threading.Thread(target=run, daemon=True)
@@ -128,6 +142,7 @@ class CheckpointManager:
         self._gc()
         return info
 
+    @spans.spanned("ckpt.restore")
     def restore(
         self,
         like,
@@ -143,13 +158,17 @@ class CheckpointManager:
         ``parallel.sharding.NamedSharding`` or None), each leaf is placed on
         that mesh with those placements, every rank keeping its shard of
         the same bytes: the elastic restore, by which a migrated job resumes
-        on a differently shaped slice."""
+        on a differently shaped slice.
+
+        Spans: ``ckpt.restore`` holds ``ckpt.read`` (the file's bytes) and
+        ``serializer.deserialize_tree``'s ``ckpt.inflate`` and
+        ``ckpt.to_device``."""
         self.wait()
         infos = [i for i in self._history if step is None or i.step == step]
         if not infos:
             raise FileNotFoundError(f"no checkpoint for {self.job} step={step}")
         info = infos[-1]
-        with open(info.path, "rb") as f:
+        with spans.span("ckpt.read"), open(info.path, "rb") as f:
             payload = ser.from_bytes(f.read())
         if payload.manifest["mode"] == "delta-int8" and base is None:
             base = self._base_cache

@@ -30,6 +30,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.convert import (BF16, bf16_from_words, bf16_words_to_f32, flatten_with_paths,
                                  host_words, tree_map_with_path)
 from repro_torch.device import DeviceLike, resolve
@@ -106,6 +107,7 @@ def _quant_flat(flat: np.ndarray, device: torch.device):
     return q.cpu().numpy().tobytes(), s.cpu().numpy().tobytes(), pad
 
 
+@spans.spanned("ckpt.quantize")
 def encode_tree(tree, mode: str = "full", base=None, *, device: DeviceLike = None) -> List[EncodedLeaf]:
     """Device phase: quantize every float leaf (int8 modes) on ``device``."""
     if mode not in ("full", "int8", "delta-int8"):
@@ -131,6 +133,7 @@ def encode_tree(tree, mode: str = "full", base=None, *, device: DeviceLike = Non
     return out
 
 
+@spans.spanned("ckpt.compress")
 def pack(leaves: List[EncodedLeaf], mode: str) -> CheckpointPayload:
     """Host phase: entropy-code the int8 codes and lay out the payload (the
     leaves' buffers joined once)."""
@@ -172,7 +175,9 @@ def deserialize_tree(payload: CheckpointPayload, like, base=None, *, device: Dev
     """Rebuild a tree with the structure of ``like`` on ``device``; int8
     leaves go through the dequantize kernel there and are rounded to their
     type as the JAX package's ``astype`` does (bfloat16: to nearest even).
-    delta-int8 payloads need the same base tree."""
+    delta-int8 payloads need the same base tree.  Each leaf's zlib lies in
+    the span ``ckpt.inflate``; its copy to the device, dequantize and cast
+    in ``ckpt.to_device``."""
     dev = resolve(device)
     entries = {e["path"]: e for e in payload.manifest["entries"]}
     base_leaves = {p: (x, dt) for p, x, dt in _flatten(base)} if base is not None else {}
@@ -185,19 +190,23 @@ def deserialize_tree(payload: CheckpointPayload, like, base=None, *, device: Dev
         raw = data[e["offset"]: e["offset"] + e["nbytes"]]
         shape = tuple(e["shape"])
         if e["enc"] == "raw":
-            if e["dtype"] == BF16:
-                return bf16_from_words(np.frombuffer(raw, dtype=np.uint16).reshape(shape)).to(dev)
-            arr = np.frombuffer(raw, dtype=np.dtype(e["dtype"])).reshape(shape)
-            return torch.from_numpy(arr.copy()).to(dev)
-        q = np.frombuffer(zlib.decompress(raw[: e["qlen"]]), dtype=np.int8)
-        s = np.frombuffer(zlib.decompress(raw[e["qlen"]:]), dtype=np.float32)
-        flat = kops.dequantize_int8(torch.from_numpy(q.copy()).to(dev),
-                                    torch.from_numpy(s.copy()).to(dev), block=block)
-        if e["pad"]:
-            flat = flat[: -e["pad"]]
-        if e.get("delta") and p in base_leaves:
-            flat = flat + torch.from_numpy(_f32(*base_leaves[p]).reshape(-1)).to(dev)
-        return flat.reshape(shape).to(_torch_dtype(e["dtype"]))
+            with spans.span("ckpt.to_device"):
+                if e["dtype"] == BF16:
+                    words = np.frombuffer(raw, dtype=np.uint16).reshape(shape)
+                    return bf16_from_words(words).to(dev)
+                arr = np.frombuffer(raw, dtype=np.dtype(e["dtype"])).reshape(shape)
+                return torch.from_numpy(arr.copy()).to(dev)
+        with spans.span("ckpt.inflate"):
+            q = np.frombuffer(zlib.decompress(raw[: e["qlen"]]), dtype=np.int8)
+            s = np.frombuffer(zlib.decompress(raw[e["qlen"]:]), dtype=np.float32)
+        with spans.span("ckpt.to_device"):
+            flat = kops.dequantize_int8(torch.from_numpy(q.copy()).to(dev),
+                                        torch.from_numpy(s.copy()).to(dev), block=block)
+            if e["pad"]:
+                flat = flat[: -e["pad"]]
+            if e.get("delta") and p in base_leaves:
+                flat = flat + torch.from_numpy(_f32(*base_leaves[p]).reshape(-1)).to(dev)
+            return flat.reshape(shape).to(_torch_dtype(e["dtype"]))
 
     return tree_map_with_path(rebuild, like)
 

@@ -14,6 +14,7 @@ import time
 from dataclasses import dataclass
 from typing import Optional
 
+from repro_torch import spans
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import feasibility as fz
 
@@ -45,16 +46,19 @@ def migrate_job(
     t_load_s: float = fz.T_LOAD_S,
     realtime: bool = False,
 ) -> tuple[CheckpointManager, MigrationReport]:
-    """Move the newest checkpoint of ``src`` to ``dst_root`` over a WAN model."""
+    """Move the newest checkpoint of ``src`` to ``dst_root`` over a WAN model
+    (spans ``migrate.export`` and ``migrate.import``)."""
     t0 = time.time()
-    raw = src.export_bytes()
+    with spans.span("migrate.export"):
+        raw = src.export_bytes()
     t_ser = time.time() - t0
     nbytes = len(raw)
     t_transfer = float(fz.transfer_time_s(nbytes, bandwidth_bps))
     if realtime:
         time.sleep(min(t_transfer, 5.0))  # bounded demo sleep
     step = src.latest.step
-    dst = CheckpointManager.import_bytes(dst_root, src.job, step, raw)
+    with spans.span("migrate.import"):
+        dst = CheckpointManager.import_bytes(dst_root, src.job, step, raw)
     verdict = None
     if window_s is not None:
         verdict = bool(fz.evaluate(nbytes, bandwidth_bps, window_s, t_load_s=t_load_s).feasible)

@@ -3,12 +3,14 @@
 Replaces ``_score_pallas`` (``repro/core/policy_kernels.py``).  The plain
 version is ``kernels/ref.py::decide_dest_ref``; both compute in float64
 and are bit-identical to the numpy pass ``_score_numpy`` (see the source
-note).  The wrapper counts its launches in ``decide_dest_cuda.launches``.
+note).  The wrapper counts its launches under ``launch.decide_dest``
+(``spans.count``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import _build
 
 JOB_COLS, SITE_COLS = 6, 3
@@ -53,8 +55,5 @@ def decide_dest_cuda(
         float(energy_ratio), float(t_downtime_s), float(class_c_s),
         jobs.device.index, torch.cuda.current_stream(jobs.device).cuda_stream)
     _build.check(err, "decide_dest")
-    decide_dest_cuda.launches += 1
+    spans.count("launch.decide_dest")
     return dest
-
-
-decide_dest_cuda.launches = 0

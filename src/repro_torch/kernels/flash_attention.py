@@ -7,16 +7,16 @@ The forward replaces ``flash_attention_pallas``
 ``kernels/ref.py::flash_attention_ref``.  q, k and v are all float32
 (tensor cores in 3xTF32, float32-class accuracy) or all bfloat16 (float32
 accumulation, output in bfloat16); any other type raises.  The wrapper
-counts its launches per type: float32 in ``flash_attention_cuda.launches``,
-bfloat16 in ``flash_attention_cuda.launches_bf16``.
+counts its launches per type (``spans.count``): float32 under
+``launch.flash_attention``, bfloat16 under ``launch.flash_attention_bf16``.
 
 The backward has no TPU counterpart: the JAX package differentiates
 ``flash_attention_ref`` with XLA.  Its plain version is
 ``kernels/ref.py::flash_attention_bwd_ref`` (the autograd of
 ``flash_attention_ref``).  It takes the forward's types, float32 (3xTF32)
-or bfloat16 (gradients in bfloat16); one call counts one launch, float32 in
-``flash_attention_bwd_cuda.launches``, bfloat16 in
-``flash_attention_bwd_cuda.launches_bf16``.  So ``FlashAttentionFn``
+or bfloat16 (gradients in bfloat16); one call counts one launch, float32
+under ``launch.flash_attention_bwd``, bfloat16 under
+``launch.flash_attention_bwd_bf16``.  So ``FlashAttentionFn``
 trains float32 and bfloat16 models on the card.
 """
 from __future__ import annotations
@@ -28,6 +28,7 @@ from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import _get_current_dispatch_mode
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch import spans
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -68,10 +69,8 @@ def _forward(q, k, v, mask_kind, window, attn_softcap,
         float(attn_softcap), hd ** -0.5, DTYPES[q.dtype], q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
-    if q.dtype == torch.bfloat16:
-        flash_attention_cuda.launches_bf16 += 1
-    else:
-        flash_attention_cuda.launches += 1
+    spans.count("launch.flash_attention_bf16" if q.dtype == torch.bfloat16
+                else "launch.flash_attention")
     return o
 
 
@@ -167,10 +166,8 @@ def _bwd_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor
         hd ** -0.5, DTYPES[q.dtype], q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd")
-    if q.dtype == torch.bfloat16:
-        flash_attention_bwd_cuda.launches_bf16 += 1
-    else:
-        flash_attention_bwd_cuda.launches += 1
+    spans.count("launch.flash_attention_bwd_bf16" if q.dtype == torch.bfloat16
+                else "launch.flash_attention_bwd")
     return dq, dk, dv
 
 
@@ -233,9 +230,3 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, lse, do.contiguous(), **ctx.kw)
         return dq, dk, dv, None, None, None
-
-
-flash_attention_cuda.launches = 0
-flash_attention_cuda.launches_bf16 = 0
-flash_attention_bwd_cuda.launches = 0
-flash_attention_bwd_cuda.launches_bf16 = 0

@@ -3,7 +3,8 @@
 A CPU tensor takes the plain PyTorch version (``kernels/ref.py``); a CUDA
 tensor takes the hand-written kernel, or the call raises.  There is no
 override and no fallback.  ``launch_counts`` reads the kernels' launch
-counters; ``reset_launch_counts`` sets them to 0.
+counters (``launch.<name>`` in ``repro_torch.spans``' registry);
+``reset_launch_counts`` sets them to 0.
 """
 from __future__ import annotations
 
@@ -11,22 +12,16 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import decide as dc
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import quantize as qz
 from repro_torch.kernels import ref
 from repro_torch.parallel.compat import DTensor, Replicate, Shard
 
-# counter name -> (wrapper, the wrapper's attribute that counts the launches)
-_COUNTERS = {
-    "flash_attention": (fa.flash_attention_cuda, "launches"),
-    "flash_attention_bf16": (fa.flash_attention_cuda, "launches_bf16"),
-    "flash_attention_bwd": (fa.flash_attention_bwd_cuda, "launches"),
-    "flash_attention_bwd_bf16": (fa.flash_attention_bwd_cuda, "launches_bf16"),
-    "quantize_int8": (qz.quantize_int8_cuda, "launches"),
-    "dequantize_int8": (qz.dequantize_int8_cuda, "launches"),
-    "decide_dest": (dc.decide_dest_cuda, "launches"),
-}
+# the kernels whose wrappers count their launches, as ``launch.<name>``
+LAUNCHES = ("flash_attention", "flash_attention_bf16", "flash_attention_bwd",
+            "flash_attention_bwd_bf16", "quantize_int8", "dequantize_int8", "decide_dest")
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -122,9 +117,9 @@ def decide_dest(jobs: torch.Tensor, sites: torch.Tensor, bw: torch.Tensor,
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: getattr(w, attr) for name, (w, attr) in _COUNTERS.items()}
+    counted = spans.counts()
+    return {name: counted.get("launch." + name, 0) for name in LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for w, attr in _COUNTERS.values():
-        setattr(w, attr, 0)
+    spans.reset("launch.")

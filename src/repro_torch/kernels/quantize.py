@@ -4,7 +4,8 @@ Replaces ``quantize_int8_pallas`` and ``dequantize_int8_pallas``
 (``repro/kernels/quantize.py``).  The plain versions are
 ``kernels/ref.py::quantize_int8_ref`` / ``dequantize_int8_ref``; the CUDA
 kernels are bit-identical to them (see the source note).  Each wrapper
-counts its launches in ``<wrapper>.launches``.
+counts its launches (``spans.count``) under ``launch.quantize_int8`` /
+``launch.dequantize_int8``.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import _build
 
 BLOCK = 256  # the kernels' quantization group; the serializer's BLOCK
@@ -43,7 +45,7 @@ def quantize_int8_cuda(x: torch.Tensor, *, block: int = BLOCK) -> Tuple[torch.Te
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), groups, x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "quantize_int8")
-    quantize_int8_cuda.launches += 1
+    spans.count("launch.quantize_int8")
     return q, scale
 
 
@@ -63,9 +65,5 @@ def dequantize_int8_cuda(q: torch.Tensor, scale: torch.Tensor, *, block: int = B
         q.data_ptr(), scale.data_ptr(), x.data_ptr(), n, q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "dequantize_int8")
-    dequantize_int8_cuda.launches += 1
+    spans.count("launch.dequantize_int8")
     return x
-
-
-quantize_int8_cuda.launches = 0
-dequantize_int8_cuda.launches = 0

@@ -29,6 +29,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.models.layers import activation, truncated_normal
 from repro_torch.parallel.compat import DTensor
 from repro_torch.parallel.shards import (
@@ -75,7 +76,7 @@ def _aux(frac_tokens, frac_probs, num_experts: int):
 
 def router_probs(p: dict, x: torch.Tensor, top_k: int):
     """Returns (combine (b,s,E) f32, dispatch (b,s,E) f32 0/1, aux_loss scalar)."""
-    combine, dispatch, probs = _route(p, x, top_k)
+    combine, dispatch, probs = spans.call("moe.route", _route, p, x, top_k)
     frac_tokens = torch.mean(dispatch, dim=(0, 1)) / top_k  # (E,)
     frac_probs = torch.mean(probs, dim=(0, 1))  # (E,)
     return combine, dispatch, _aux(frac_tokens, frac_probs, probs.shape[-1])
@@ -109,7 +110,7 @@ def apply_moe(p: dict, x: torch.Tensor, *, top_k: int, act: str,
     if channel_dims(x, p["wi"], 0):
         y, _, aux = on_channel_shards(fn, x, p, EXPERTS)
         return shd(y, "batch", "seq", None), replicated(aux, x.device_mesh)
-    return _on_token_shards(functools.partial(_experts, act=act), p, x, top_k)
+    return _on_token_shards(functools.partial(_experts, act=act, top_k=top_k), p, x, top_k)
 
 
 def _expert_block(x, p, ch, state, *, top_k: int, act: str):
@@ -118,13 +119,13 @@ def _expert_block(x, p, ch, state, *, top_k: int, act: str):
     y, None, the aux loss).  The aux loss's sum over experts is taken per
     block and summed over the blocks, so that its gradient arrives once;
     its per-expert means are over the batch shards."""
-    combine, dispatch, probs = _route(p, x, top_k)
+    combine, dispatch, probs = spans.call("moe.route", _route, p, x, top_k)
     num_experts = probs.shape[-1]
     if ch.count > 1:
         n = num_experts // ch.count
         block = slice(ch.index * n, (ch.index + 1) * n)
         combine, dispatch, probs = combine[..., block], dispatch[..., block], probs[..., block]
-    y = _experts(p, x, combine, dispatch, act=act)
+    y = _experts(p, x, combine, dispatch, act=act, top_k=top_k)
     frac_tokens = ch.batch_mean(torch.mean(dispatch, dim=(0, 1))) / top_k
     frac_probs = ch.batch_mean(torch.mean(probs, dim=(0, 1)))
     return y, None, ch.total(_aux(frac_tokens, frac_probs, num_experts)).float()
@@ -138,7 +139,7 @@ def _on_token_shards(run, p: dict, x, top_k: int):
     xs = keep_only(x, (0, 1))
     xl = xs.to_local()
     pl = full_local(p, xs)
-    combine, dispatch, probs = _route(pl, xl, top_k)
+    combine, dispatch, probs = spans.call("moe.route", _route, pl, xl, top_k)
     y = run(pl, xl, combine, dispatch)
     frac_tokens = shard_mean(torch.mean(dispatch, dim=(0, 1)), xs, (0, 1)) / top_k
     frac_probs = shard_mean(torch.mean(probs, dim=(0, 1)), xs, (0, 1))
@@ -146,16 +147,35 @@ def _on_token_shards(run, p: dict, x, top_k: int):
     return shd(wrap_like(y, xs), "batch", "seq", None), aux
 
 
-def _experts(p: dict, x, combine, dispatch, *, act: str):
-    # Dispatch: (E, b, s, d) buffers (a block of experts on a mesh).
+def _experts(p: dict, x, combine, dispatch, *, act: str, top_k: int):
+    """The dense dispatch over the experts ``dispatch`` holds (a block of
+    experts on a mesh): every token row through every one of them, in the
+    spans ``moe.dispatch``, ``moe.experts`` and ``moe.combine``.  Counts the
+    rows the expert GEMMs compute and the rows routed to these experts."""
+    b, s, e_block = dispatch.shape
+    spans.count("moe.rows_computed", e_block * b * s)
+    spans.count("moe.rows_routed", b * s * top_k * e_block // p["router"].shape[-1])
+    expert_in = spans.call("moe.dispatch", _dispatch, x, dispatch)
+    expert_out = spans.call("moe.experts", _expert_mlp, expert_in, p["wg"], p["wi"], p["wo"], act)
+    return spans.call("moe.combine", _combine, expert_out, combine, x.dtype)
+
+
+def _dispatch(x, dispatch):
+    """(E, b, s, d) buffers: each expert's copy of the token rows, 0 where unrouted."""
     expert_in = torch.einsum("bse,bsd->ebsd", dispatch.to(x.dtype), x)
-    expert_in = shd(expert_in, "expert_act", "batch", None, None)
-    h = activation(act)(torch.einsum("ebsd,edf->ebsf", expert_in, p["wg"]))
-    h = h * torch.einsum("ebsd,edf->ebsf", expert_in, p["wi"])
+    return shd(expert_in, "expert_act", "batch", None, None)
+
+
+def _expert_mlp(expert_in, wg, wi, wo, act: str):
+    h = activation(act)(torch.einsum("ebsd,edf->ebsf", expert_in, wg))
+    h = h * torch.einsum("ebsd,edf->ebsf", expert_in, wi)
     h = shd(h, "expert_act", "batch", None, None)
-    expert_out = torch.einsum("ebsf,efd->ebsd", h, p["wo"])
-    expert_out = shd(expert_out, "expert_act", "batch", None, None)
-    y = torch.einsum("ebsd,bse->bsd", expert_out, combine.to(x.dtype))
+    expert_out = torch.einsum("ebsf,efd->ebsd", h, wo)
+    return shd(expert_out, "expert_act", "batch", None, None)
+
+
+def _combine(expert_out, combine, dtype):
+    y = torch.einsum("ebsd,bse->bsd", expert_out, combine.to(dtype))
     return shd(y, "batch", "seq", None)
 
 
@@ -184,26 +204,51 @@ def apply_moe_capacity(
 
 def _capacity(p: dict, x, combine, dispatch, *, act: str, block: int, top_k: int,
               capacity_factor: float):
-    b, s, d = x.shape
+    b, s, _ = x.shape
     E = dispatch.shape[-1]
     if s % block:
         raise ValueError(f"sequence {s} is not a multiple of the block {block} (on a mesh, a "
                          f"rank's shard of the sequence, whose blocks must be the whole one's)")
-    bs, nb = block, s // block
-    cap = int(max(1, min(bs, round(bs * top_k / E * capacity_factor))))
-    gates = (combine * dispatch).reshape(b, nb, bs, E)
+    nb = s // block
+    cap = int(max(1, min(block, round(block * top_k / E * capacity_factor))))
+    spans.count("moe.rows_computed", b * nb * E * cap)
+    spans.count("moe.rows_routed", b * s * top_k)
+    xin, topv, topi, keep = spans.call("moe.dispatch", _gather, x, combine, dispatch, block, cap)
+    out = spans.call("moe.experts", _capacity_mlp, xin, p["wg"], p["wi"], p["wo"], act)
+    return spans.call("moe.combine", _scatter_add, out, topv, topi, keep, x.shape)
+
+
+def _block_ids(b: int, nb: int, device):
+    return (torch.arange(b, device=device)[:, None, None, None],
+            torch.arange(nb, device=device)[None, :, None, None])
+
+
+def _gather(x, combine, dispatch, block: int, cap: int):
+    """Each expert's top-``cap`` tokens by gate within each block of the
+    sequence: (rows (b, nb, E, C, d), gates, block-local ids, kept 0/1)."""
+    b, s, d = x.shape
+    nb, E = s // block, dispatch.shape[-1]
+    gates = (combine * dispatch).reshape(b, nb, block, E)
     topv, topi = topk_stable(gates.transpose(2, 3), cap)  # (b, nb, E, C) block-local ids
     keep = (topv > 0.0).to(x.dtype)
-    xb = shd(x.reshape(b, nb, bs, d), "batch", "seq", None, None)
-    bi = torch.arange(b, device=x.device)[:, None, None, None]
-    ni = torch.arange(nb, device=x.device)[None, :, None, None]
+    xb = shd(x.reshape(b, nb, block, d), "batch", "seq", None, None)
+    bi, ni = _block_ids(b, nb, x.device)
     xin = xb[bi, ni, topi] * keep[..., None]  # gather within blocks: (b, nb, E, C, d)
-    xin = shd(xin, "batch", "seq", "expert_act", None, None)
-    h = activation(act)(torch.einsum("bnecd,edf->bnecf", xin, p["wg"]))
-    h = h * torch.einsum("bnecd,edf->bnecf", xin, p["wi"])
-    out = torch.einsum("bnecf,efd->bnecd", h, p["wo"])
-    out = out * (topv.to(x.dtype) * keep)[..., None]
-    # scatter-add back inside each block
-    y = torch.zeros((b, nb, bs, d), dtype=x.dtype, device=x.device)
+    return shd(xin, "batch", "seq", "expert_act", None, None), topv, topi, keep
+
+
+def _capacity_mlp(xin, wg, wi, wo, act: str):
+    h = activation(act)(torch.einsum("bnecd,edf->bnecf", xin, wg))
+    h = h * torch.einsum("bnecd,edf->bnecf", xin, wi)
+    return torch.einsum("bnecf,efd->bnecd", h, wo)
+
+
+def _scatter_add(out, topv, topi, keep, shape):
+    """The experts' rows, weighted by their gates, added back inside each block."""
+    b, s, d = shape
+    nb, bs = topi.shape[1], s // topi.shape[1]
+    out = out * (topv.to(out.dtype) * keep)[..., None]
+    bi, ni = _block_ids(b, nb, out.device)
+    y = torch.zeros((b, nb, bs, d), dtype=out.dtype, device=out.device)
     y = y.index_put((bi, ni, topi), out, accumulate=True)
     return shd(y.reshape(b, s, d), "batch", "seq", None)

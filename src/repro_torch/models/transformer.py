@@ -24,6 +24,7 @@ from typing import Any, Dict, Tuple
 import torch
 from torch.utils import checkpoint as ckpt
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import flatten_with_paths, tree_map
 from repro_torch.models import attention as attn_lib
@@ -147,22 +148,27 @@ def _apply_ffn(p: dict, h, cfg: ModelConfig):
 
 
 def apply_block(p: dict, x, kind: str, cfg: ModelConfig, positions):
-    """Full-sequence block.  Returns (x, aux_loss or None)."""
+    """Full-sequence block.  Returns (x, aux_loss or None).  The mixer call
+    lies in the span ``block.attn`` whatever its kind, the MLP or MoE call
+    in ``block.ffn`` (``repro_torch.spans``)."""
     h = apply_norm(p["norm1"], x, cfg.norm_type)
     if kind.startswith("attn"):
-        mix = attn_lib.apply_attention(p["attn"], h, positions=positions,
-                                       **_mixer_kwargs(cfg, kind))
+        mix = spans.call("block.attn", attn_lib.apply_attention, p["attn"], h,
+                         positions=positions, **_mixer_kwargs(cfg, kind))
     elif kind == "mamba":
-        mix = mamba_lib.apply_mamba(p["mamba"], h, d_state=cfg.mamba_d_state)
+        mix = spans.call("block.attn", mamba_lib.apply_mamba, p["mamba"], h,
+                         d_state=cfg.mamba_d_state)
     elif kind == "mlstm":
-        return x + xlstm_lib.apply_mlstm(p["mlstm"], h, cfg.num_heads), None
+        return x + spans.call("block.attn", xlstm_lib.apply_mlstm, p["mlstm"], h,
+                              cfg.num_heads), None
     elif kind == "slstm":
-        return x + xlstm_lib.apply_slstm(p["slstm"], h, cfg.num_heads), None
+        return x + spans.call("block.attn", xlstm_lib.apply_slstm, p["slstm"], h,
+                              cfg.num_heads), None
     else:
         raise ValueError(kind)
     x = x + mix
     h = apply_norm(p["norm2"], x, cfg.norm_type)
-    y, aux = _apply_ffn(p, h, cfg)
+    y, aux = spans.call("block.ffn", _apply_ffn, p, h, cfg)
     return shd(x + y, "batch", "seq", "embed_act"), aux
 
 
@@ -209,6 +215,12 @@ def _index(tree, i: int):
 
 def _unembed_table(params, cfg: ModelConfig):
     return params["embed"]["table"].T if cfg.tie_embeddings else params["unembed"]["table"]
+
+
+def _head(norm: dict, table, x, cfg: ModelConfig):
+    """The final norm and the unembedding: logits (b, s, vocab)."""
+    x = apply_norm(norm, x, cfg.norm_type)
+    return softcap(apply_unembed(table, x), cfg.logit_softcap)
 
 
 # ---------------------------------------------------------------------------
@@ -299,18 +311,19 @@ def lm_forward(params: dict, batch: dict, cfg: ModelConfig, *,
         positions = torch.arange(s, device=x.device).expand(b, s)
 
     def group_fn(x, aux, gp):
-        for i, kind in enumerate(cfg.block_pattern):
-            x, a = apply_block(gp[f"b{i}"], x, kind, cfg, positions)
-            if a is not None:
-                aux = aux + a
+        with spans.span("model.group"):  # under remat also the rerun in the backward pass
+            for i, kind in enumerate(cfg.block_pattern):
+                x, a = apply_block(gp[f"b{i}"], x, kind, cfg, positions)
+                if a is not None:
+                    aux = aux + a
         return x, aux
 
     body = _remat(group_fn, remat_policy)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(cfg.num_groups):
         x, aux = body(x, aux, _index(params["groups"], g))
-    x = apply_norm(params["final_norm"], x, cfg.norm_type)
-    logits = softcap(apply_unembed(_unembed_table(params, cfg), x), cfg.logit_softcap)
+    logits = spans.call("model.head", _head, params["final_norm"], _unembed_table(params, cfg),
+                        x, cfg)
     return logits, aux
 
 
@@ -319,9 +332,14 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig, *, remat_policy: str = 
     entropy plus ``router_aux_coef`` times the MoE layers' summed aux loss
     (0 without MoE)."""
     logits, aux = lm_forward(params, batch, cfg, remat_policy=remat_policy)
-    ce = cross_entropy(logits, batch["labels"])
-    loss = ce + cfg.router_aux_coef * aux
+    loss, ce = spans.call("model.loss", _loss, logits, batch["labels"], aux,
+                          cfg.router_aux_coef)
     return loss, {"ce": ce, "aux": aux}
+
+
+def _loss(logits, labels, aux, aux_coef: float):
+    ce = cross_entropy(logits, labels)
+    return ce + aux_coef * aux, ce
 
 
 # ---------------------------------------------------------------------------
@@ -416,6 +434,5 @@ def lm_decode_step(params: dict, cache: dict, batch: dict, cfg: ModelConfig, *,
             blk = f"b{i}"
             gc = {name: c[g] for name, c in cache[blk].items()}  # views into the stack
             x = apply_block_decode(gp[blk], x, kind, cfg, positions, index, gc, long_context)
-    x = apply_norm(params["final_norm"], x, cfg.norm_type)
-    logits = softcap(apply_unembed(_unembed_table(params, cfg), x), cfg.logit_softcap)
+    logits = _head(params["final_norm"], _unembed_table(params, cfg), x, cfg)
     return logits[:, 0], cache

@@ -21,6 +21,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.convert import flatten_with_paths, tree_map, tree_map_with_path
 from repro_torch.parallel.compat import DTensor, Replicate, distribute_tensor
 
@@ -56,6 +57,7 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
+@spans.spanned("optim.adamw")
 def apply_updates(
     params,
     grads,

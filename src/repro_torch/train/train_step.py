@@ -15,6 +15,7 @@ from typing import Callable, Dict
 
 import torch
 
+from repro_torch import spans
 from repro_torch.convert import flatten_with_paths, tree_map, tree_map_with_path
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamWConfig, apply_updates
@@ -46,9 +47,11 @@ def value_and_grad(model: Model, params, batch, remat_policy: str):
     counterpart of ``jax.value_and_grad(..., has_aux=True)``.  The params
     themselves are left as they are (autograd runs on detached leaves).  A
     leaf the loss does not reach (the embedding table when the batch holds
-    'embeds') gets a zero gradient, as JAX gives it."""
+    'embeds') gets a zero gradient, as JAX gives it.  Runs in the span
+    ``train.fwd_bwd``."""
     live = tree_map(lambda x: x.detach().requires_grad_(True), params)
-    with torch.enable_grad(), mesh_scope(params):  # remat reruns the forward in the backward
+    # grad on: remat reruns the forward in the backward
+    with spans.span("train.fwd_bwd"), torch.enable_grad(), mesh_scope(params):
         loss, metrics = model.loss(live, batch, remat_policy=remat_policy)
         paths, leaves = zip(*flatten_with_paths(live))
         got = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -83,7 +86,8 @@ def make_train_step(model: Model, cfg: TrainStepConfig) -> Callable:
         else:
             (loss, metrics), grads = value_and_grad(model, params, batch, cfg.remat_policy)
         if cfg.grad_compress:
-            grads = compress_roundtrip(grads)
+            with spans.span("train.grad_compress"):
+                grads = compress_roundtrip(grads)
         lr_scale = cosine_schedule(opt_state["step"] + 1, warmup=cfg.warmup_steps,
                                    total=cfg.total_steps)
         params, opt_state, om = apply_updates(params, grads, opt_state, cfg.opt, lr_scale)

@@ -12,13 +12,13 @@ other.  The trainer runs on ``device`` (default: the card).
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.checkpoint.manager import CheckpointInfo, CheckpointManager
 from repro_torch.data.pipeline import SyntheticLMDataset
 from repro_torch.device import DeviceLike, resolve
@@ -97,7 +97,9 @@ class Trainer:
 
     # -- loop ----------------------------------------------------------------
     def run(self, max_steps: Optional[int] = None) -> Dict[str, Any]:
-        """Train until budget or preemption.  Returns a status dict."""
+        """Train until budget or preemption.  Returns a status dict.  Each
+        step lies in the span ``trainer.step``, its batch in ``trainer.batch``
+        and the logged metrics' reads in ``trainer.log``."""
         if self.params is None:
             self.init_state()
         budget = min(
@@ -105,21 +107,23 @@ class Trainer:
             self.step + (max_steps if max_steps is not None else self.cfg.total_steps),
         )
         status = "done"
-        t0 = time.time()
         while self.step < budget:
             if self.preempt_signal(self.step):
                 self.save()
                 status = "preempted"
                 break
-            batch = self.dataset.batch(self.step)
-            self.params, self.opt_state, metrics = self.train_step(
-                self.params, self.opt_state, batch
-            )
-            self.step += 1
-            if self.step % self.cfg.log_every == 0 or self.step == budget:
-                row = {k: float(v) for k, v in metrics.items()}
-                row["step"] = self.step
-                self.history.append(row)
+            with spans.span("trainer.step"):
+                with spans.span("trainer.batch"):
+                    batch = self.dataset.batch(self.step)
+                self.params, self.opt_state, metrics = self.train_step(
+                    self.params, self.opt_state, batch
+                )
+                self.step += 1
+                if self.step % self.cfg.log_every == 0 or self.step == budget:
+                    with spans.span("trainer.log"):  # float() waits for the card
+                        row = {k: float(v) for k, v in metrics.items()}
+                    row["step"] = self.step
+                    self.history.append(row)
             if self.step % self.cfg.save_every == 0:
                 self.save()
         if status == "done" and self.step >= self.cfg.total_steps:
@@ -127,7 +131,6 @@ class Trainer:
         return {
             "status": status,
             "step": self.step,
-            "elapsed_s": time.time() - t0,
             "loss": self.history[-1]["loss"] if self.history else float("nan"),
             "ckpt_bytes": self.ckpt.latest_bytes,
         }

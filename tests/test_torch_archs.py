@@ -297,14 +297,14 @@ def use_plain_stand_ins(monkeypatch, tmp_path):
 
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
     import chip_smoke
+    from repro_torch import spans
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, quantize as qz, ref
 
-    def counting(wrapper, attr, plain):
+    def counting(kernel, plain):
         def call(*args, **kw):
-            bf16 = args[0].dtype == torch.bfloat16 and hasattr(wrapper, attr + "_bf16")
-            name = attr + "_bf16" if bf16 else attr
-            setattr(wrapper, name, getattr(wrapper, name) + 1)
+            bf16 = args[0].dtype == torch.bfloat16 and kernel + "_bf16" in ops.LAUNCHES
+            spans.count("launch." + kernel + ("_bf16" if bf16 else ""))
             return plain(*args, **kw)
         return call
 
@@ -315,19 +315,19 @@ def use_plain_stand_ins(monkeypatch, tmp_path):
             return tuple(o.to(args[0].dtype) for o in out) if isinstance(out, tuple) else out.to(args[0].dtype)
         return call
 
-    k1 = counting(fa.flash_attention_cuda, "launches", in_f32(ref.flash_attention_ref))
-    k1_lse = counting(fa.flash_attention_cuda, "launches", lambda q, k, v, **kw: (
+    k1 = counting("flash_attention", in_f32(ref.flash_attention_ref))
+    k1_lse = counting("flash_attention", lambda q, k, v, **kw: (
         in_f32(ref.flash_attention_ref)(q, k, v, **kw), ref.flash_attention_lse_ref(q.float(), k.float(), **kw)))
-    bwd = counting(fa.flash_attention_bwd_cuda, "launches", lambda q, k, v, o, lse, do, **kw: in_f32(
+    bwd = counting("flash_attention_bwd", lambda q, k, v, o, lse, do, **kw: in_f32(
         ref.flash_attention_bwd_ref)(q, k, v, do, **kw))
     for mod in (fa, chip_smoke):
         monkeypatch.setattr(mod, "flash_attention_cuda", k1)
         monkeypatch.setattr(mod, "flash_attention_lse_cuda", k1_lse)
         monkeypatch.setattr(mod, "flash_attention_bwd_cuda", bwd)
     monkeypatch.setattr(qz, "quantize_int8_cuda",
-                        counting(qz.quantize_int8_cuda, "launches", ref.quantize_int8_ref))
+                        counting("quantize_int8", ref.quantize_int8_ref))
     monkeypatch.setattr(qz, "dequantize_int8_cuda",
-                        counting(qz.dequantize_int8_cuda, "launches", ref.dequantize_int8_ref))
+                        counting("dequantize_int8", ref.dequantize_int8_ref))
     monkeypatch.setattr(ops, "_on_card", lambda x: x.device.type == "cpu")
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, **kw: (fn(), 1.0)[1])
