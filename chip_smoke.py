@@ -9,8 +9,12 @@ Phases, each of which raises on failure:
                 and print each one's registers and spills (ptxas -v);
   3. kernels -- hold each kernel against its plain PyTorch version on the
                 card, at the serving slice's shapes and more (K1 in float32
-                and in bf16), and time both beside a PyTorch call where one
-                computes the same function, and beside the kernel's bound;
+                and in bf16; K5, the MoE's grouped expert GEMM, and its row
+                sums at granite's and phi3.5-moe's layers, forward and
+                backward, bit-identical twice, a block of experts equal to
+                the whole, the expert stage free of host syncs), and time
+                both beside a PyTorch call where one computes the same
+                function, and beside the kernel's bound;
   4. slice   -- the serving slice at micro-lm's full width, through the
                 port's own entry points, with the launch counters set to 0
                 just before it and read just after:
@@ -197,6 +201,8 @@ from repro_torch.examples import (  # noqa: E402
     green_cluster_sim, migrate_across_sites, quickstart, train_micro_lm)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.decide import decide_dest_cuda  # noqa: E402
+from repro_torch.kernels.grouped_gemm import (  # noqa: E402
+    grouped_mlp_bwd_cuda, grouped_mlp_cuda, moe_combine_bwd_cuda, moe_rows_sum_cuda)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd_cuda, flash_attention_cuda, flash_attention_lse_cuda)
 from repro_torch.kernels.quantize import dequantize_int8_cuda, quantize_int8_cuda  # noqa: E402
@@ -280,6 +286,25 @@ FLASH_BF16_CASES = [
     (1, 100, 300, 2, 1, 256, "full", 0, 0.0),
 ]
 RAGGED_GROUPS = (1, 3, 100, 1001)
+# K5 at the MoE layers the port trains, one layer's routed rows: granite-moe
+# (8 x 4,096 tokens, top-8 of 32 experts of d 1,024 x f 512: the benchmark's
+# train-4k cell) and phi3.5-moe (4,096 tokens, top-2 of 16 of d 4,096 x f
+# 6,400); and widths that fill no tile (f 136: a partial column tile) in
+# both types.  Expert 1 takes no token in every case.
+# (name, tokens, d, f, experts, top_k, dtype)
+GROUPED_CASES = [
+    ("granite-moe-1b-a400m", 8 * 4096, 1024, 512, 32, 8, torch.bfloat16),
+    ("phi3.5-moe-42b-a6.6b", 4096, 4096, 6400, 16, 2, torch.bfloat16),
+    ("ragged", 300, 264, 136, 7, 2, torch.bfloat16),
+    ("ragged", 300, 264, 136, 7, 2, torch.float32),
+]
+# A block of experts (first, count) of the ragged cases, as an expert-parallel rank holds it.
+GROUPED_BLOCK = (2, 3)
+# K5 vs its plain version computed in float32 on the same inputs, as a share
+# of each output's largest |element|: bf16 rounds g, u, h, the output and
+# the gradients to bf16 (FLASH_BF16_TOL's reason); float32 sums the same
+# products in another order (FLASH_TOL's reason).
+GROUPED_TOL = {torch.bfloat16: FLASH_BF16_TOL, torch.float32: FLASH_TOL}
 
 # The attention backward in float32: K1's float32 shapes and, in float32,
 # its bf16 SWEEP shapes.  In bf16: FLASH_BF16_CASES.
@@ -379,6 +404,16 @@ KERNELS = {
     "flash_attention_bwd_bf16": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu",
         replaces="src/repro/kernels/ref.py:17"),
+    # no TPU kernel: the JAX package runs every token through every expert
+    # with XLA's einsums (src/repro/models/moe.py:60, the dense dispatch)
+    "grouped_gemm": dict(
+        route="cuda", source="src/repro_torch/csrc/grouped_gemm.cu",
+        replaces="src/repro/models/moe.py:60"),
+    # no TPU kernel: the JAX package combines with an einsum over its dense
+    # buffers (src/repro/models/moe.py:67)
+    "moe_rows": dict(
+        route="cuda", source="src/repro_torch/csrc/moe_rows.cu",
+        replaces="src/repro/models/moe.py:67"),
 }
 # H100 SXM data sheet (NVIDIA spec): HBM 3.35 TB/s; float32 outside the
 # tensor cores 67 TFLOP/s; float64 outside the tensor cores 34 TFLOP/s;
@@ -387,6 +422,12 @@ HBM_BPS, F32_FLOPS, F64_FLOPS = 3.35e12, 67e12, 34e12
 TF32_FLOPS, BF16_FLOPS = 495e12, 989e12
 # K1 float32 does each product as three TF32 products (3xTF32).
 TF32_SPLIT = 3
+# K5's launches: a forward (gate and up with SwiGLU, down), a backward (dh
+# with the SwiGLU derivative, dwo, dx, dwg, dwi); kernels/grouped_gemm.py.
+K5_FWD, K5_BWD = 2, 5
+# The row sums' (csrc/moe_rows.cu): a MoE forward's combine; a backward's
+# combine backward and the gather's backward.
+ROWS_FWD, ROWS_BWD = 1, 2
 
 # The orchestration slice, at the sizes of the repo's perf gate
 # (benchmarks/run.py, copied here: the script imports nothing of benchmarks/).
@@ -520,7 +561,7 @@ ARCH2_GRID, ARCH2_SMALL_GRID = (16, 16), (4, 4)
 # Card against device="cpu" at one layer group: 2 x 32 tokens, not
 # [archs]' 2 x 64.  At these widths the CPU side at 2 x 64 took 10-28 s a
 # bf16 step and 16 s for phi3.5-moe's float32 step on the H100 machine's
-# host (the dense dispatch runs all 16 experts on every token), and the
+# host (the dense dispatch then ran all 16 experts on every token), and the
 # whole script 1,040 s of its 1,200.
 ARCH2_CARD_CPU_SEQ = 32
 # After a model is freed the card must hold no more than this beyond what
@@ -726,17 +767,40 @@ def attn_layers(cfg) -> int:
     return cfg.num_groups * sum(kind.startswith("attn") for kind in cfg.block_pattern)
 
 
+def moe_layers(cfg) -> int:
+    """Layers whose FFN is the MoE in one forward: each launches K5 K5_FWD
+    times and the row sums ROWS_FWD times a forward (a prefill, or each
+    decode step), K5_BWD and ROWS_BWD times a backward."""
+    if cfg.is_encdec or not cfg.moe:
+        return 0
+    return cfg.num_groups * sum(tfm._is_moe_pos(cfg, i) for i in range(len(cfg.block_pattern)))
+
+
+def moe_fwd(cfg, forwards: int = 1) -> dict:
+    """The MoE's launches (K5 and the row sums) in ``forwards`` forwards of ``cfg``."""
+    n = moe_layers(cfg) * forwards
+    return dict(grouped_gemm=K5_FWD * n, moe_rows=ROWS_FWD * n)
+
+
+# one MoE layer's launches, forward and backward
+MOE_STEP = dict(grouped_gemm=K5_FWD + K5_BWD, moe_rows=ROWS_FWD + ROWS_BWD)
+
+
 def step_launches(cfg, remat_policy: str) -> dict:
-    """K1 and backward launches of one train step, from the code: K1 once
-    per attention layer in the forward and once more in remat's recompute
-    (its custom Function is no matmul, so "dots" reruns it too), the
-    backward kernel once per attention layer; counted under the model's
-    type."""
+    """K1, backward, K5 and row-sum launches of one train step, from the
+    code: K1 once per attention layer in the forward and once more in
+    remat's recompute (its custom Function is no matmul, so "dots" reruns
+    it too), the backward kernel once per attention layer; K5 and the row
+    sums likewise per MoE layer, their forward's launches in each forward,
+    their backward's once; counted under the model's type."""
     layers = attn_layers(cfg)
-    k1 = layers * (1 if remat_policy == "none" else 2)
+    passes = 1 if remat_policy == "none" else 2
     tag = "_bf16" if cfg.dtype == "bfloat16" else ""
     out = dict.fromkeys(ops.launch_counts(), 0)
-    out.update({f"flash_attention{tag}": k1, f"flash_attention_bwd{tag}": layers})
+    moe = moe_layers(cfg)
+    out.update({f"flash_attention{tag}": layers * passes, f"flash_attention_bwd{tag}": layers,
+                "grouped_gemm": moe * (K5_FWD * passes + K5_BWD),
+                "moe_rows": moe * (ROWS_FWD * passes + ROWS_BWD)})
     return out
 
 
@@ -1340,6 +1404,217 @@ def check_flash_bwd(dev, gen) -> dict:
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                          bound_by=b_by)
     return out
+
+
+def _grouped_inputs(case, dev, seed: int):
+    """One MoE layer's routed rows for K5's ``case``, drawn on ``dev``: the
+    rows sorted by expert (moe._dispatch of seeded tokens and routes, expert
+    1 idle), the weights at unit-output scale, a cotangent of the output."""
+    _, tokens, d, f, E, k, dtype = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    draw = lambda *shape, scale=1.0: (torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+                                      * scale).to(dtype)
+    x = draw(1, tokens, d)
+    logits = torch.randn((1, tokens, E), generator=gen, device=dev)
+    logits[..., 1] = -1e9
+    experts = moe_lib.topk_stable(logits, k)[1]
+    xs, _, offsets = moe_lib._dispatch(x, experts, E)
+    wg, wi = draw(E, d, f, scale=d ** -0.5), draw(E, d, f, scale=d ** -0.5)
+    wo = draw(E, f, d, scale=f ** -0.5)
+    return xs.detach(), wg, wi, wo, offsets, draw(xs.shape[0], d)
+
+
+def _library_forward(xs, wg, wi, wo, offsets):
+    """The same forward through ``torch._grouped_mm`` (the yardstick; the
+    port never calls it), its weights column-major as it wants them; None
+    where this PyTorch has no grouped matmul for these inputs."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None
+    ends = offsets[1:].to(torch.int32)
+    wg_c, wi_c, wo_c = (w.transpose(-2, -1).contiguous().transpose(-2, -1) for w in (wg, wi, wo))
+
+    def fwd():
+        g = torch._grouped_mm(xs, wg_c, offs=ends)
+        h = torch.nn.functional.silu(g) * torch._grouped_mm(xs, wi_c, offs=ends)
+        return torch._grouped_mm(h, wo_c, offs=ends)
+
+    try:
+        fwd()
+    except (RuntimeError, TypeError, NotImplementedError) as e:
+        log(f"[kernels] torch._grouped_mm does not take these inputs: {str(e).splitlines()[0]}")
+        return None
+    return fwd
+
+
+def check_grouped_gemm(dev) -> dict:
+    """K5 against its plain version (in float32 on the same inputs) at
+    GROUPED_CASES, forward and backward; two calls bit-identical; a block
+    of experts (GROUPED_BLOCK) equal to the whole call's rows and gradients
+    and 0 elsewhere; no host sync in the MoE's expert stage
+    (check_grouped_no_sync).  Timed at the granite and phi3.5-moe shapes
+    beside the plain version and torch._grouped_mm.  Returns the granite
+    forward's numbers."""
+    out = {}
+    for i, case in enumerate(GROUPED_CASES):
+        name, tokens, d, f, E, k, dtype = case
+        tol = GROUPED_TOL[dtype]
+        xs, wg, wi, wo, offsets, dout = _grouped_inputs(case, dev, 20 + i)
+        rows = xs.shape[0]
+        ops.reset_launch_counts()
+        got, gu, h = grouped_mlp_cuda(xs, wg, wi, wo, offsets, num_experts=E, save=True)
+        grads = grouped_mlp_bwd_cuda(dout, xs, gu, h, wg, wi, wo, offsets, num_experts=E)
+        counts = ops.launch_counts()
+        if counts != exactly(counts, grouped_gemm=K5_FWD + K5_BWD):
+            raise RuntimeError(f"K5 {name}: launch counts {counts}")
+        again = grouped_mlp_cuda(xs, wg, wi, wo, offsets, num_experts=E, save=True)
+        grads2 = grouped_mlp_bwd_cuda(dout, xs, gu, h, wg, wi, wo, offsets, num_experts=E)
+        if not all(torch.equal(a, b) for a, b in zip((got, gu, h, *grads), (*again, *grads2))):
+            raise RuntimeError(f"K5 {name}: two calls differ")
+        f32 = [t.float() for t in (xs, wg, wi, wo)]
+        want = ref.grouped_mlp_ref(*f32, offsets)
+        want_grads = ref.grouped_mlp_bwd_ref(dout.float(), *f32, offsets)
+        shares = _shares((got, *grads), (want, *want_grads), tol)
+        if not max(shares) <= 1.0:
+            raise RuntimeError(f"K5 {name} {dtype}: out / dx / dwg / dwi / dwo at "
+                               f"{', '.join(f'{100 * x:.1f}%' for x in shares)} of {tol} x max")
+        if int(offsets[2] - offsets[1]) or bool(grads[1][1].abs().max() != 0):
+            raise RuntimeError(f"K5 {name}: expert 1 took rows or has a nonzero dW")
+        err = float((got.float() - want).abs().max())
+        block = ""
+        if name == "ragged":
+            first, n = GROUPED_BLOCK
+            lo, hi = int(offsets[first]), int(offsets[first + n])
+            part = [w[first:first + n].contiguous() for w in (wg, wi, wo)]
+            offs = offsets[first:first + n + 1]
+            b_out, b_gu, b_h = grouped_mlp_cuda(xs, *part, offs, num_experts=E, save=True)
+            b_grads = grouped_mlp_bwd_cuda(dout, xs, b_gu, b_h, *part, offs, num_experts=E)
+            inside = (torch.equal(b_out[lo:hi], got[lo:hi])
+                      and torch.equal(b_grads[0][lo:hi], grads[0][lo:hi])
+                      and all(torch.equal(b, g[first:first + n]) for b, g in zip(b_grads[1:], grads[1:])))
+            outside = all(not bool(t[:lo].any()) and not bool(t[hi:].any()) for t in (b_out, b_grads[0]))
+            if not (inside and outside):
+                raise RuntimeError(f"K5 {name} {dtype}: experts {first}..{first + n - 1} alone differ "
+                                   f"from the whole call (inside {inside}, zeros outside {outside})")
+            block = (f"; experts {first}..{first + n - 1} alone: their rows and dW bit-identical to "
+                     f"the whole call's, the other rows 0")
+        log(f"[kernels] grouped_gemm {name} {str(dtype).split('.')[-1]}: {tokens} tokens top-{k} of "
+            f"{E} experts ({rows} rows), d {d}, f {f}: out / dx / dwg / dwi / dwo within "
+            f"{', '.join(f'{100 * x:.1f}%' for x in shares)} of {tol} x max against the float32 "
+            f"plain version; two calls bit-identical; launches {K5_FWD} + {K5_BWD}{block}")
+        if name == "ragged":
+            continue
+        es = xs.element_size()
+        w_bytes = 3 * E * d * f * es
+        fwd_ms = time_ms(lambda: grouped_mlp_cuda(xs, wg, wi, wo, offsets, num_experts=E))
+        bwd_ms = time_ms(lambda: grouped_mlp_bwd_cuda(dout, xs, gu, h, wg, wi, wo, offsets,
+                                                      num_experts=E))
+        host_offsets = offsets.cpu()  # the plain version reads them on the host
+        plain_ms = time_ms(lambda: ref.grouped_mlp_ref(xs, wg, wi, wo, host_offsets))
+        lib = _library_forward(xs, wg, wi, wo, offsets)
+        lib_ms = None if lib is None else time_ms(lib)
+        fwd_b, fwd_by = bound(2 * rows * d * es + w_bytes, 6 * rows * d * f, BF16_FLOPS)
+        bwd_b, bwd_by = bound((3 * rows * d + 3 * rows * f) * es + 2 * w_bytes,
+                              12 * rows * d * f, BF16_FLOPS)
+        lib_s = "null" if lib_ms is None else f"{lib_ms:.4f}"
+        log(f"[kernels] grouped_gemm {name}: forward {fwd_ms:.4f} ms ({6 * rows * d * f / fwd_ms / 1e9:.1f} "
+            f"TFLOP/s), bound {fwd_b:.4f} ms ({fwd_by}), {100 * fwd_b / fwd_ms:.1f}% of it; backward "
+            f"{bwd_ms:.4f} ms ({12 * rows * d * f / bwd_ms / 1e9:.1f} TFLOP/s), bound {bwd_b:.4f} ms "
+            f"({bwd_by}), {100 * bwd_b / bwd_ms:.1f}%; plain forward (a matmul loop) {plain_ms:.4f} ms; "
+            f"torch._grouped_mm forward {lib_s} ms")
+        if name == GROUPED_CASES[0][0]:
+            out = dict(max_abs_err=err, ms=fwd_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=fwd_b, bound_by=fwd_by)
+        del xs, wg, wi, wo, gu, h, grads, grads2, again, want, want_grads, f32
+    check_grouped_no_sync(dev)
+    return out
+
+
+def check_moe_rows(dev) -> dict:
+    """The row sums (csrc/moe_rows.cu: the combine, the gather's backward,
+    the combine's backward) against their plain versions in float32 on the
+    same inputs at GROUPED_CASES' rows, two calls bit-identical, launches as
+    derived; timed at the granite and phi3.5-moe shapes.  Returns the
+    granite combine's numbers."""
+    out = {}
+    for i, (name, tokens, d, _, E, k, dtype) in enumerate(GROUPED_CASES):
+        tol = GROUPED_TOL[dtype]
+        gen = torch.Generator(device=dev).manual_seed(40 + i)
+        experts = moe_lib.topk_stable(torch.randn((1, tokens, E), generator=gen, device=dev), k)[1]
+        x = torch.randn((1, tokens, d), generator=gen, device=dev).to(dtype)
+        src, inv, _ = moe_lib._dispatch(x, experts, E)
+        gates = torch.softmax(torch.randn((tokens, k), generator=gen, device=dev), dim=-1)
+        dy = torch.randn((tokens, d), generator=gen, device=dev).to(dtype)
+
+        def calls():
+            return (moe_rows_sum_cuda(src, inv, gates, k), moe_rows_sum_cuda(src, inv, None, k),
+                    *moe_combine_bwd_cuda(src, dy, inv, gates))
+
+        ops.reset_launch_counts()
+        got = calls()
+        counts = ops.launch_counts()
+        if counts != exactly(counts, moe_rows=3):
+            raise RuntimeError(f"row sums {name}: launch counts {counts}")
+        if not all(torch.equal(a, b) for a, b in zip(got, calls())):
+            raise RuntimeError(f"row sums {name}: two calls differ")
+        src32 = src.float()
+        want = (ref.moe_rows_sum_ref(src32, inv, gates, k), ref.moe_rows_sum_ref(src32, inv, None, k),
+                *ref.moe_combine_bwd_ref(src32, dy.float(), inv, gates))
+        shares = _shares(got, want, tol)
+        if not max(shares) <= 1.0:
+            raise RuntimeError(f"row sums {name} {dtype}: combine / gather backward / d rows / "
+                               f"d gates at {', '.join(f'{100 * x:.1f}%' for x in shares)} of "
+                               f"{tol} x max")
+        log(f"[kernels] moe_rows {name} {str(dtype).split('.')[-1]}: {tokens} tokens x top-{k}, d "
+            f"{d}: combine / gather backward / d rows / d gates within "
+            f"{', '.join(f'{100 * x:.1f}%' for x in shares)} of {tol} x max against the float32 "
+            f"plain versions; two calls bit-identical; launches 3")
+        if name == "ragged":
+            continue
+        rows_b = src.numel() * src.element_size()
+        tok_b = tokens * d * src.element_size()
+        fwd_ms = time_ms(lambda: moe_rows_sum_cuda(src, inv, gates, k))
+        bwd_ms = time_ms(lambda: moe_combine_bwd_cuda(src, dy, inv, gates))
+        plain_ms = time_ms(lambda: ref.moe_rows_sum_ref(src, inv, gates, k))
+        plain_bwd = time_ms(lambda: ref.moe_combine_bwd_ref(src, dy, inv, gates))
+        fwd_b, fwd_by = bound(rows_b + tok_b + 12 * tokens * k, 2 * tokens * k * d, F32_FLOPS)
+        bwd_b, bwd_by = bound(2 * rows_b + tok_b + 16 * tokens * k, 3 * tokens * k * d, F32_FLOPS)
+        log(f"[kernels] moe_rows {name}: combine {fwd_ms:.4f} ms, bound {fwd_b:.4f} ms ({fwd_by}), "
+            f"{100 * fwd_b / fwd_ms:.1f}% of it, plain {plain_ms:.4f} ms; combine backward "
+            f"{bwd_ms:.4f} ms, bound {bwd_b:.4f} ms ({bwd_by}), {100 * bwd_b / bwd_ms:.1f}%, plain "
+            f"{plain_bwd:.4f} ms")
+        if name == GROUPED_CASES[0][0]:
+            out = dict(max_abs_err=float((got[0].float() - want[0]).abs().max()), ms=fwd_ms,
+                       plain_ms=plain_ms, library_ms=None, bound_ms=fwd_b, bound_by=fwd_by)
+    return out
+
+
+def check_grouped_no_sync(dev) -> None:
+    """The MoE's dispatch, expert stage and combine (moe._experts) forward
+    and backward at granite's widths on 2 x 512 tokens, under
+    torch.cuda.set_sync_debug_mode("error"): no host sync (no group size
+    read on the host); K5's launches as derived."""
+    cfg = get_config("granite-moe-1b-a400m")
+    gen = torch.Generator(device=dev).manual_seed(30)
+    p = {k: v.requires_grad_(True) for k, v in moe_lib.init_moe(
+        gen, cfg.d_model, cfg.expert_d_ff, cfg.num_experts, cfg.num_layers, torch.bfloat16,
+        dev).items()}
+    x = torch.randn((2, 512, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    x.requires_grad_(True)
+    gates, experts, _ = moe_lib._route(p, x, cfg.top_k)
+    cot = torch.randn(x.shape, generator=gen, device=dev).to(torch.bfloat16)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = moe_lib._experts(p, x, gates, experts, act=cfg.act, top_k=cfg.top_k)
+        y.backward(cot)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts = ops.launch_counts()
+    if counts != exactly(counts, **MOE_STEP):
+        raise RuntimeError(f"moe._experts: launch counts {counts}")
+    log(f"[kernels] moe._experts at granite's widths, 2 x 512 tokens: forward and backward with no "
+        f"host sync (set_sync_debug_mode 'error'); launches {counts}")
 
 
 def _ragged_inputs(gen, dev):
@@ -2535,10 +2810,14 @@ def check_arch_serving(res: ArchServeResult, cfg, prompts, decode_prompts) -> di
     exact: every leaf and the prefill's logits bit for bit (the decode's
     logits are held by check_arch_decode).  Returns the launches, summed."""
     total = {}
+    steps = decode_prompts.shape[1] + ARCH_NEW - 1  # greedy_decode's decode_step calls
     for name, got in res.launches.items():
-        k1 = attn_layers(cfg) if name.startswith("prefill") else 0
-        if got != exactly(got, flash_attention_bf16=k1):
-            raise RuntimeError(f"{cfg.name} {name}: launch counts {got}, expected K1 bf16 {k1} only")
+        prefill = name.startswith("prefill")
+        k1 = attn_layers(cfg) if prefill else 0
+        moe = moe_fwd(cfg, 1 if prefill else steps if name == "decode" else 0)
+        if got != exactly(got, flash_attention_bf16=k1, **moe):
+            raise RuntimeError(f"{cfg.name} {name}: launch counts {got}, expected K1 bf16 {k1} "
+                               f"and {moe} only")
         total = {k: total.get(k, 0) + v for k, v in got.items()}
     b, s = prompts.shape
     if res.logits.shape != (b, s, cfg.vocab_size) or not bool(torch.isfinite(res.logits).all()):
@@ -2634,7 +2913,7 @@ def check_arch_card_vs_cpu(cfg, params, dev, tag: str = "[archs]", seq: int = 0)
     card_routes = []
     with routes(card_routes):
         (card, _), counts, _ = counted(lambda: model.forward(p, torch_inputs(batch, dev)))
-    if counts != exactly(counts, flash_attention_bf16=attn_layers(cut)):
+    if counts != exactly(counts, flash_attention_bf16=attn_layers(cut), **moe_fwd(cut)):
         raise RuntimeError(f"{cut.name} forward: launch counts {counts}")
     card = card.float().cpu()
     host = tree_map(lambda x: x.cpu(), p)
@@ -2701,7 +2980,8 @@ def check_arch_decode(cfg, params, res: ArchServeResult, dev) -> dict:
     rec = DecodeLogits(model)
     _, dec, _ = counted(lambda: greedy_decode(rec, p32, toks, 1, toks.shape[1] + 1))
     (want, _), pre, _ = counted(lambda: model.forward(p32, {"tokens": toks}))
-    if dec != exactly(dec) or pre != exactly(pre, flash_attention=attn_layers(cfg)):
+    if dec != exactly(dec, **moe_fwd(cfg, toks.shape[1])) or pre != exactly(
+            pre, flash_attention=attn_layers(cfg), **moe_fwd(cfg)):
         raise RuntimeError(f"{cfg.name} float32 decode / prefill launches {dec} / {pre}")
     got = rec.logits()
     err = float((got - want).abs().max())
@@ -2773,7 +3053,9 @@ def check_cut_decode(cfg, params, dev, tag: str = "[archs]") -> dict:
         dec = {k: dec[k] + dec2[k] for k in dec}
         routed = (f"; {flips} of {b * n} tokens routed to other experts unforced ({100 * unforced:.1f}% "
                   f"of the limit unforced), so the decode is held routed as the prefill chose")
-    if dec != exactly(dec) or pre != exactly(pre, flash_attention_bf16=attn_layers(cut)):
+    decodes = 2 if cut.moe else 1  # an MoE model decodes again, routed as the prefill chose
+    if dec != exactly(dec, **moe_fwd(cut, decodes * n)) or pre != exactly(
+            pre, flash_attention_bf16=attn_layers(cut), **moe_fwd(cut)):
         raise RuntimeError(f"{cut.name} decode / prefill launches {dec} / {pre}")
     err, share = decode_share(decoded, prefill)
     if not share <= 1.0:
@@ -3104,10 +3386,14 @@ def check_arch2_serving(res: Arch2ServeResult, cfg) -> dict:
     decode), finite logits of the right shape, and the greedy tokens in the
     vocabulary.  Returns the launches, summed."""
     total = {}
+    steps = ARCH_PROMPT[1] + ARCH_NEW - 1  # greedy_decode's decode_step calls
     for name, got in res.launches.items():
-        k1 = attn_layers(cfg) if name.startswith("prefill") else 0
-        if got != exactly(got, flash_attention_bf16=k1):
-            raise RuntimeError(f"{cfg.name} {name}: launch counts {got}, expected K1 bf16 {k1} only")
+        prefill = name.startswith("prefill")
+        k1 = attn_layers(cfg) if prefill else 0
+        moe = moe_fwd(cfg, 1 if prefill else steps)
+        if got != exactly(got, flash_attention_bf16=k1, **moe):
+            raise RuntimeError(f"{cfg.name} {name}: launch counts {got}, expected K1 bf16 {k1} "
+                               f"and {moe} only")
         total = {k: total.get(k, 0) + v for k, v in got.items()}
     b, s = ARCH_PREFILL_DEFAULT
     if res.logits.shape != (b, s, cfg.vocab_size) or not bool(torch.isfinite(res.logits).all()):
@@ -3141,7 +3427,8 @@ def check_f32_decode(cfg, params, res: Arch2ServeResult, tag: str = "[archs2]") 
         got = rec.logits()
         inputs = {"tokens": toks}
     (want, _), pre, _ = counted(lambda: model.forward(p32, inputs))
-    if dec != exactly(dec) or pre != exactly(pre, flash_attention=attn_layers(cfg)):
+    if dec != exactly(dec, **moe_fwd(cfg, got.shape[1])) or pre != exactly(
+            pre, flash_attention=attn_layers(cfg), **moe_fwd(cfg)):
         raise RuntimeError(f"{cfg.name} float32 decode / prefill launches {dec} / {pre}")
     err = max_diff(got, want)
     if not torch.allclose(got, want, atol=DECODE_TOL, rtol=DECODE_TOL):
@@ -3224,7 +3511,7 @@ def run_arch2_checkpoint(cfg, params, dev, work, tag: str = "[archs2]") -> dict:
     rt = checkpoint_round_trip(p["groups"], cut.name, dev, os.path.join(work, cut.name))
     (logits_b, _), pre_b, _ = counted(lambda: model.forward({**p, "groups": rt["back"]}, inputs))
     for what, got in (("prefill", pre), ("prefill restored", pre_b)):
-        if got != exactly(got, flash_attention_bf16=attn_layers(cut)):
+        if got != exactly(got, flash_attention_bf16=attn_layers(cut), **moe_fwd(cut)):
             raise RuntimeError(f"{cut.name} checkpoint lifecycle {what}: launch counts {got}")
     if not torch.equal(logits_b, logits):
         raise RuntimeError(f"{cut.name}: the prefill from the restored params differs")
@@ -3446,7 +3733,8 @@ def check_block_card_vs_cpu(cfg, params, i: int, dev, tag: str = "[archs3]") -> 
         (out, g_card), counts, card_s = counted(lambda: run(p, x.to(dev), cot.to(dev),
                                                             positions.to(dev)))
     k1 = 1 if kind.startswith("attn") else 0
-    if counts != exactly(counts, flash_attention_bf16=k1, flash_attention_bwd_bf16=k1):
+    moe = MOE_STEP if "moe" in p else {}
+    if counts != exactly(counts, flash_attention_bf16=k1, flash_attention_bwd_bf16=k1, **moe):
         raise RuntimeError(f"{cfg.name} {blk} ({kind}) card step launches {counts}")
     t0 = time.perf_counter()
     force = routes[0] if routes else None
@@ -3915,6 +4203,8 @@ def run_mesh_blocks(mesh, dev) -> dict:
         positions = torch.arange(MESH_BLOCK_SEQ, device=dev)[None]
         expect = (dict(flash_attention_bf16=1, flash_attention_bwd_bf16=1)
                   if kind.startswith("attn") else {})
+        if "moe" in p:
+            expect.update(MOE_STEP)
 
         def run(p, x, cot):
             live = tree_map(lambda t: t.detach().requires_grad_(True), p)
@@ -4094,6 +4384,8 @@ def main() -> int:
     cpu, captured = cpu_paths.result()
     pool.shutdown()
     stats["decide_dest"] = check_decide(dev, captured)
+    stats["grouped_gemm"] = check_grouped_gemm(dev)
+    stats["moe_rows"] = check_moe_rows(dev)
     stamp("build and kernels")
     for name, st in stats.items():
         lib = "null" if st["library_ms"] is None else f"{st['library_ms']:.4f}"

@@ -2,12 +2,12 @@
 
 The sources are ``csrc/*.cu`` in this package, each with a plain C
 interface (no PyTorch headers), so each compiles in seconds; the two flash
-attention sources share ``csrc/flash_common.cuh``.  The library goes to
-``build/`` at the repository root, named by a hash of the sources, the
-header and the flags: a changed source gives a new name, hence a rebuild.  All
-sources compile in parallel (one ``nvcc`` each), then link once.  The
-build runs on first use, never at import, and only on a machine with
-``nvcc``; the CPU path never reaches it.
+attention sources and the grouped GEMM share ``csrc/flash_common.cuh``.
+The library goes to ``build/`` at the repository root, named by a hash of
+the sources, the header and the flags: a changed source gives a new name,
+hence a rebuild.  All sources compile in parallel (one ``nvcc`` each),
+then link once.  The build runs on first use, never at import, and only
+on a machine with ``nvcc``; the CPU path never reaches it.
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ from typing import List
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parents[1] / "build"
-SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "quantize.cu", "decide.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "quantize.cu", "decide.cu",
+           "grouped_gemm.cu", "moe_rows.cu")
 HEADERS = ("flash_common.cuh",)
 # sm_90a: Hopper with its arch-specific instructions (wgmma, setmaxnreg).
 # Never --use_fast_math: the quantize and decide kernels rely on IEEE
@@ -56,6 +57,14 @@ SIGNATURES = {
     # class_c_s, device, stream
     "repro_decide_dest_f64": [_c_ptr] * 4 + [_c_ll] * 3 + [_c_dbl] * 6 + [_c_int]
     + [_c_dbl] * 3 + [_c_int, _c_ptr],
+    # kind, dtype, a, lda, b0, b1, ldb, b_stride, b_ksplit, c, ldc, c_stride,
+    # aux, ld_aux, offsets, groups, M, N, K, device, stream
+    "repro_grouped_gemm": [_c_int, _c_int, _c_ptr, _c_ll, _c_ptr, _c_ptr] + [_c_ll] * 3
+    + [_c_ptr] + [_c_ll] * 2 + [_c_ptr, _c_ll, _c_ptr] + [_c_int] * 5 + [_c_ptr],
+    # src, inv, w, dst, tokens, k, d, dtype, device, stream
+    "repro_moe_rows_sum": [_c_ptr] * 4 + [_c_ll] + [_c_int] * 4 + [_c_ptr],
+    # src, dy, inv, w, dsrc, dw, tokens, k, d, dtype, device, stream
+    "repro_moe_combine_bwd": [_c_ptr] * 6 + [_c_ll] + [_c_int] * 4 + [_c_ptr],
 }
 
 

@@ -11,17 +11,20 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch import spans
 from repro_torch.kernels import decide as dc
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import grouped_gemm as gg
 from repro_torch.kernels import quantize as qz
 from repro_torch.kernels import ref
 from repro_torch.parallel.compat import DTensor, Replicate, Shard
 
 # the kernels whose wrappers count their launches, as ``launch.<name>``
 LAUNCHES = ("flash_attention", "flash_attention_bf16", "flash_attention_bwd",
-            "flash_attention_bwd_bf16", "quantize_int8", "dequantize_int8", "decide_dest")
+            "flash_attention_bwd_bf16", "quantize_int8", "dequantize_int8", "decide_dest",
+            "grouped_gemm", "moe_rows")
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -114,6 +117,54 @@ def decide_dest(jobs: torch.Tensor, sites: torch.Tensor, bw: torch.Tensor,
         return dc.decide_dest_cuda(jobs, sites, bw, **scalars)
     dc.check_decide_inputs(jobs, sites, bw)
     return ref.decide_dest_ref(jobs, sites, bw, **scalars)
+
+
+def grouped_mlp(xs: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+                offsets: torch.Tensor, *, act: str, num_experts: int) -> torch.Tensor:
+    """The routed experts' SwiGLU MLP (K5) on rows sorted by expert: group
+    e (of this block's ``wg.shape[0]`` experts of ``num_experts``) takes
+    rows ``offsets[e]:offsets[e + 1]``; rows outside every group give 0.
+    On the card, and on fake tensors (the dry-run), ``GroupedMLPFn``: K5
+    forward and backward; on the CPU the plain version, differentiated by
+    autograd in its backward.  Either way the tensors kept for the backward
+    have the buffer's shapes, not a group's, so a remat rerun that routes
+    otherwise recomputes tensors of the same shapes."""
+    if isinstance(xs, FakeTensor) or _on_card(xs):
+        save = torch.is_grad_enabled() and any(t.requires_grad for t in (xs, wg, wi, wo))
+        return gg.GroupedMLPFn.apply(xs, wg, wi, wo, offsets, act, num_experts, save)
+    return _GroupedMLPRef.apply(xs, wg, wi, wo, offsets, act)
+
+
+class _GroupedMLPRef(torch.autograd.Function):
+    """``ref.grouped_mlp_ref`` forward, its autograd backward."""
+
+    @staticmethod
+    def forward(ctx, xs, wg, wi, wo, offsets, act: str):
+        ctx.save_for_backward(xs, wg, wi, wo, offsets)
+        ctx.act = act
+        return ref.grouped_mlp_ref(xs, wg, wi, wo, offsets, act=act)
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = ref.grouped_mlp_bwd_ref(dout, *ctx.saved_tensors, act=ctx.act)
+        return (*grads, None, None)
+
+
+def moe_rows_sum(src: torch.Tensor, inv: torch.Tensor, w, k: int) -> torch.Tensor:
+    """(tokens, d): each token's k rows of ``src`` at ``inv``, weighted by
+    its float32 gates ``w`` (or 1 where None), summed in float32 and rounded
+    once: the MoE's combine, and its gather's backward."""
+    if isinstance(src, FakeTensor) or _on_card(src):
+        return gg.moe_rows_sum_cuda(src, inv, w, k)
+    return ref.moe_rows_sum_ref(src, inv, w, k)
+
+
+def moe_combine_bwd(src: torch.Tensor, dy: torch.Tensor, inv: torch.Tensor,
+                    w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gated ``moe_rows_sum``'s backward: (d src, d w)."""
+    if isinstance(src, FakeTensor) or _on_card(src):
+        return gg.moe_combine_bwd_cuda(src, dy, inv, w)
+    return ref.moe_combine_bwd_ref(src, dy, inv, w)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -12,6 +12,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.device import ieee_f32
+from repro_torch.models.layers import activation
 
 NEG_INF = -2.0e38
 LOG2E = 1.4426950408889634
@@ -78,6 +79,65 @@ def flash_attention_bwd_ref(
         out = flash_attention_ref(qg, kg, vg, mask_kind=mask_kind, window=window,
                                   attn_softcap=attn_softcap)
         return torch.autograd.grad(out, (qg, kg, vg), do)
+
+
+def grouped_mlp_ref(
+    xs: torch.Tensor,  # (rows, d): the routed rows, sorted by expert
+    wg: torch.Tensor,  # (groups, d, f)
+    wi: torch.Tensor,  # (groups, d, f)
+    wo: torch.Tensor,  # (groups, f, d)
+    offsets: torch.Tensor,  # (groups + 1,) int64: group e's rows are offsets[e]:offsets[e + 1]
+    *,
+    act: str = "silu",
+) -> torch.Tensor:
+    """K5's plain version: each group's SwiGLU MLP on its own rows, a loop of
+    ``torch.matmul``, (act(xs_e wg_e) * (xs_e wi_e)) wo_e; rows outside
+    every group give 0.  It reads the group bounds on the host, so it takes
+    CPU tensors (``kernels/ops.py``)."""
+    bounds = offsets.tolist()
+    parts = [xs.new_zeros((bounds[0], wo.shape[-1]))]
+    for e in range(wg.shape[0]):
+        seg = xs[bounds[e]:bounds[e + 1]]
+        parts.append((activation(act)(seg @ wg[e]) * (seg @ wi[e])) @ wo[e])
+    parts.append(xs.new_zeros((xs.shape[0] - bounds[-1], wo.shape[-1])))
+    return torch.cat(parts)
+
+
+def grouped_mlp_bwd_ref(
+    dout: torch.Tensor, xs: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+    offsets: torch.Tensor, *, act: str = "silu",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dxs, dwg, dwi, dwo): the autograd of ``grouped_mlp_ref`` at its
+    inputs for the output rows' cotangent ``dout``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (xs, wg, wi, wo)]
+        out = grouped_mlp_ref(*leaves, offsets, act=act)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+def moe_rows_sum_ref(src: torch.Tensor, inv: torch.Tensor, w, k: int) -> torch.Tensor:
+    """(tokens, d): y[t] = sum_j w[t, j] src[inv[t k + j]], summed in
+    float32 over j in order and rounded once to src's type; ``w`` (tokens,
+    k) float32 gates, or None for weights of 1."""
+    rows = src.index_select(0, inv).view(inv.numel() // k, k, -1)
+    if w is None:
+        return rows.sum(dim=1, dtype=torch.float32).to(src.dtype)
+    return torch.bmm(w.unsqueeze(1), rows.float()).squeeze(1).to(src.dtype)
+
+
+def moe_combine_bwd_ref(src: torch.Tensor, dy: torch.Tensor, inv: torch.Tensor,
+                        w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward of ``moe_rows_sum_ref`` with gates, for y's cotangent
+    ``dy``: (dsrc, dw), dsrc[inv[t k + j]] = w[t, j] dy[t] in src's type (inv
+    a permutation of src's rows), dw[t, j] = <src[inv[t k + j]], dy[t]> in
+    float32."""
+    tokens, k = w.shape
+    dy32 = dy.float()
+    drows = torch.bmm(w.unsqueeze(2), dy32.unsqueeze(1)).to(src.dtype)
+    dsrc = torch.empty_like(src).index_copy_(0, inv, drows.view(tokens * k, -1))
+    rows = src.index_select(0, inv).view(tokens, k, -1)
+    return dsrc, torch.bmm(rows.float(), dy32.unsqueeze(2)).squeeze(2)
+
 
 
 def quantize_int8_ref(x: torch.Tensor, block: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:

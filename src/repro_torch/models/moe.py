@@ -1,12 +1,19 @@
 """Mixture-of-Experts MLP with top-k routing and expert parallelism (port
 of ``repro/models/moe.py``).
 
-Dense-dispatch formulation (Switch/Mixtral-reference style): tokens are
-combined into per-expert buffers with an einsum against the dispatch mask.
-The JAX package computes MoE outside any Pallas kernel, so this is plain
-PyTorch on every device.  ``apply_moe(impl=)`` or the ``REPRO_MOE_IMPL``
-environment variable selects the block-local capacity dispatch
-(``apply_moe_capacity``) instead, as in the reference.
+The JAX package's dense dispatch (``impl="dense"``, the default) computes
+every token row through every expert, the rows of the experts a token is
+not routed to being zero.  The port computes the same sum without those
+rows (dropless): the b s k routed (token, expert) rows are sorted by expert
+and gathered (``moe.dispatch``), each expert's MLP runs on its own rows in
+one grouped GEMM (``kernels/ops.grouped_mlp``: K5 on the card, a loop of
+``torch.matmul`` on the CPU; ``moe.experts``), and each token sums its k
+output rows weighted by its float32 gates (``moe.combine``).  Nothing
+reads a group's size on the host, and every step is deterministic: no
+atomic adds, so a forward repeats itself bit for bit (the remat rerun
+routes as the forward did).  ``apply_moe(impl=)`` or the
+``REPRO_MOE_IMPL`` environment variable selects the block-local capacity
+dispatch (``apply_moe_capacity``) instead, as in the reference.
 
 On DTensors the experts stay where the param rules put them: with the
 expert dim split over 'model' (EP), each rank runs its block of experts on
@@ -30,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import spans
+from repro_torch.kernels import ops
 from repro_torch.models.layers import activation, truncated_normal
 from repro_torch.parallel.compat import DTensor
 from repro_torch.parallel.shards import (
@@ -57,15 +65,18 @@ def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _route(p: dict, x: torch.Tensor, top_k: int):
-    """(combine (b,s,E) f32, dispatch (b,s,E) f32 0/1, probs (b,s,E) f32)."""
+    """(gates (b,s,k) f32, experts (b,s,k) int64, probs (b,s,E) f32): each
+    token's top-k experts, their probabilities renormalised to sum 1."""
     logits = (x.float() @ p["router"]).float()  # (b,s,E)
     probs = torch.softmax(logits, dim=-1)
     top_vals, top_idx = topk_stable(probs, top_k)  # (b,s,k)
-    top_vals = top_vals / torch.sum(top_vals, dim=-1, keepdim=True)
-    onehot = F.one_hot(top_idx, logits.shape[-1]).float()  # (b,s,k,E)
-    dispatch = onehot.sum(dim=-2)
-    combine = torch.einsum("bsk,bske->bse", top_vals, onehot)
-    return combine, dispatch, probs
+    return top_vals / torch.sum(top_vals, dim=-1, keepdim=True), top_idx, probs
+
+
+def _routed(experts: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """(b,s,E) f32: 1 where a token is routed to an expert, else 0."""
+    mask = experts.new_zeros((*experts.shape[:-1], num_experts), dtype=torch.float32)
+    return mask.scatter_(-1, experts, 1.0)
 
 
 def _aux(frac_tokens, frac_probs, num_experts: int):
@@ -74,12 +85,10 @@ def _aux(frac_tokens, frac_probs, num_experts: int):
     return num_experts * torch.sum(frac_tokens * frac_probs)
 
 
-def router_probs(p: dict, x: torch.Tensor, top_k: int):
-    """Returns (combine (b,s,E) f32, dispatch (b,s,E) f32 0/1, aux_loss scalar)."""
-    combine, dispatch, probs = spans.call("moe.route", _route, p, x, top_k)
-    frac_tokens = torch.mean(dispatch, dim=(0, 1)) / top_k  # (E,)
-    frac_probs = torch.mean(probs, dim=(0, 1))  # (E,)
-    return combine, dispatch, _aux(frac_tokens, frac_probs, probs.shape[-1])
+def _dense_weights(gates, experts, num_experts: int):
+    """(combine, dispatch), (b,s,E) f32: each token's gate at its experts, and 0/1."""
+    onehot = F.one_hot(experts, num_experts).float()  # (b,s,k,E)
+    return torch.einsum("bsk,bske->bse", gates, onehot), onehot.sum(dim=-2)
 
 
 # the expert weights' expert dim: the channel of on_channel_shards (the
@@ -89,9 +98,9 @@ EXPERTS = {"wi": 0, "wg": 0, "wo": 0}
 
 def apply_moe(p: dict, x: torch.Tensor, *, top_k: int, act: str,
               impl: str = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (b, s, d) -> (y, aux_loss).  impl: 'dense' (reference dispatch) or
-    'capacity' (``apply_moe_capacity``); ``REPRO_MOE_IMPL`` overrides the
-    default.
+    """x: (b, s, d) -> (y, aux_loss).  impl: 'dense' (the reference's
+    mathematics, computed dropless on the routed rows) or 'capacity'
+    (``apply_moe_capacity``); ``REPRO_MOE_IMPL`` overrides the default.
 
     On a DTensor whose expert weights are split along the expert dim (EP,
     the baseline rules), each rank routes its batch shard's tokens, the
@@ -114,69 +123,119 @@ def apply_moe(p: dict, x: torch.Tensor, *, top_k: int, act: str,
 
 
 def _expert_block(x, p, ch, state, *, top_k: int, act: str):
-    """The dense dispatch on one block of experts (``ch``'s: ``p``'s expert
-    weights hold that block, the router all experts): (this block's part of
-    y, None, the aux loss).  The aux loss's sum over experts is taken per
+    """The routed experts of one block (``ch``'s: ``p``'s expert weights
+    hold that block, the router all experts): (this block's part of y,
+    None, the aux loss).  The aux loss's sum over experts is taken per
     block and summed over the blocks, so that its gradient arrives once;
     its per-expert means are over the batch shards."""
-    combine, dispatch, probs = spans.call("moe.route", _route, p, x, top_k)
+    gates, experts, probs = spans.call("moe.route", _route, p, x, top_k)
     num_experts = probs.shape[-1]
+    dispatch = _routed(experts, num_experts)
+    first, n = 0, num_experts
     if ch.count > 1:
         n = num_experts // ch.count
-        block = slice(ch.index * n, (ch.index + 1) * n)
-        combine, dispatch, probs = combine[..., block], dispatch[..., block], probs[..., block]
-    y = _experts(p, x, combine, dispatch, act=act, top_k=top_k)
+        first = ch.index * n
+        dispatch, probs = dispatch[..., first:first + n], probs[..., first:first + n]
+    y = _experts(p, x, gates, experts, first, n, act=act, top_k=top_k)
     frac_tokens = ch.batch_mean(torch.mean(dispatch, dim=(0, 1))) / top_k
     frac_probs = ch.batch_mean(torch.mean(probs, dim=(0, 1)))
     return y, None, ch.total(_aux(frac_tokens, frac_probs, num_experts)).float()
 
 
 def _on_token_shards(run, p: dict, x, top_k: int):
-    """``run(p, x, combine, dispatch)`` (the experts) on each rank's batch
-    and sequence shard of ``x``, routed there, the params gathered whole:
-    (y placed as the residual, the aux loss, its per-expert fractions'
-    means taken over all shards, replicated)."""
+    """``run(p, x, gates, experts)`` (the experts) on each rank's batch and
+    sequence shard of ``x``, routed there, the params gathered whole: (y
+    placed as the residual, the aux loss, its per-expert fractions' means
+    taken over all shards, replicated)."""
     xs = keep_only(x, (0, 1))
     xl = xs.to_local()
     pl = full_local(p, xs)
-    combine, dispatch, probs = spans.call("moe.route", _route, pl, xl, top_k)
-    y = run(pl, xl, combine, dispatch)
-    frac_tokens = shard_mean(torch.mean(dispatch, dim=(0, 1)), xs, (0, 1)) / top_k
+    gates, experts, probs = spans.call("moe.route", _route, pl, xl, top_k)
+    y = run(pl, xl, gates, experts)
+    frac_tokens = shard_mean(torch.mean(_routed(experts, probs.shape[-1]), dim=(0, 1)),
+                             xs, (0, 1)) / top_k
     frac_probs = shard_mean(torch.mean(probs, dim=(0, 1)), xs, (0, 1))
     aux = replicated(_aux(frac_tokens, frac_probs, probs.shape[-1]).float(), xs.device_mesh)
     return shd(wrap_like(y, xs), "batch", "seq", None), aux
 
 
-def _experts(p: dict, x, combine, dispatch, *, act: str, top_k: int):
-    """The dense dispatch over the experts ``dispatch`` holds (a block of
-    experts on a mesh): every token row through every one of them, in the
-    spans ``moe.dispatch``, ``moe.experts`` and ``moe.combine``.  Counts the
-    rows the expert GEMMs compute and the rows routed to these experts."""
-    b, s, e_block = dispatch.shape
-    spans.count("moe.rows_computed", e_block * b * s)
-    spans.count("moe.rows_routed", b * s * top_k * e_block // p["router"].shape[-1])
-    expert_in = spans.call("moe.dispatch", _dispatch, x, dispatch)
-    expert_out = spans.call("moe.experts", _expert_mlp, expert_in, p["wg"], p["wi"], p["wo"], act)
-    return spans.call("moe.combine", _combine, expert_out, combine, x.dtype)
+def _experts(p: dict, x, gates, experts, first: int = 0, count: int = None, *, act: str,
+             top_k: int):
+    """The routed rows of experts ``first .. first + count`` (all by
+    default; ``p``'s expert weights hold them), in the spans
+    ``moe.dispatch`` (sort and gather), ``moe.experts`` (the grouped
+    GEMM) and ``moe.combine``.  The buffers hold all b s k routed rows;
+    on a block of experts the other experts' rows stay 0.  Counts the rows
+    the expert GEMMs compute and the rows routed to these experts: on a
+    block, its expected share of the routed rows."""
+    b, s, _ = x.shape
+    num_experts = p["router"].shape[-1]
+    count = num_experts if count is None else count
+    rows = b * s * top_k * count // num_experts
+    spans.count("moe.rows_computed", rows)
+    spans.count("moe.rows_routed", rows)
+    xs, inv, offsets = spans.call("moe.dispatch", _dispatch, x, experts, num_experts)
+    out = spans.call("moe.experts", ops.grouped_mlp, xs, p["wg"], p["wi"], p["wo"],
+                     offsets[first:first + count + 1], act=act, num_experts=num_experts)
+    return spans.call("moe.combine", _combine, out, gates, inv)
 
 
-def _dispatch(x, dispatch):
-    """(E, b, s, d) buffers: each expert's copy of the token rows, 0 where unrouted."""
-    expert_in = torch.einsum("bse,bsd->ebsd", dispatch.to(x.dtype), x)
-    return shd(expert_in, "expert_act", "batch", None, None)
+def _dispatch(x, experts, num_experts: int):
+    """The routed rows in expert order, tokens in order within an expert:
+    (rows (b s k, d), the inverse of the sort's permutation of the (token,
+    slot) pairs: inv[t k + j] is the row of token t's j-th expert, each
+    expert's first row and the end (E + 1,) int64).  The sort is stable;
+    the offsets are found on the device."""
+    b, s, d = x.shape
+    k = experts.shape[-1]
+    ids, order = torch.sort(experts.reshape(-1), stable=True)
+    offsets = torch.searchsorted(ids, torch.arange(num_experts + 1, device=ids.device))
+    inv = torch.empty_like(order).scatter_(0, order, torch.arange(order.numel(),
+                                                                  device=order.device))
+    return _GatherRows.apply(x.reshape(b * s, d), order // k, inv, k), inv, offsets
 
 
-def _expert_mlp(expert_in, wg, wi, wo, act: str):
-    h = activation(act)(torch.einsum("ebsd,edf->ebsf", expert_in, wg))
-    h = h * torch.einsum("ebsd,edf->ebsf", expert_in, wi)
-    h = shd(h, "expert_act", "batch", None, None)
-    expert_out = torch.einsum("ebsf,efd->ebsd", h, wo)
-    return shd(expert_out, "expert_act", "batch", None, None)
+class _GatherRows(torch.autograd.Function):
+    """rows[i] = x[token[i]]; the gradient of a token's row is the sum of
+    its k rows' in slot order (``ops.moe_rows_sum``), in float32, rounded
+    once: no scatter-add."""
+
+    @staticmethod
+    def forward(ctx, x, token, inv, k: int):
+        ctx.save_for_backward(inv)
+        ctx.k = k
+        return x.index_select(0, token)
+
+    @staticmethod
+    def backward(ctx, drows):
+        (inv,) = ctx.saved_tensors
+        return ops.moe_rows_sum(drows.contiguous(), inv, None, ctx.k), None, None, None
 
 
-def _combine(expert_out, combine, dtype):
-    y = torch.einsum("ebsd,bse->bsd", expert_out, combine.to(dtype))
-    return shd(y, "batch", "seq", None)
+def _combine(out, gates, inv):
+    """y (b, s, d): each token's k output rows, weighted by its float32
+    gates and summed in slot order, rounded once to the rows' type."""
+    b, s, k = gates.shape
+    y = _CombineRows.apply(out, gates.reshape(b * s, k).contiguous(), inv)
+    return y.reshape(b, s, -1)
+
+
+class _CombineRows(torch.autograd.Function):
+    """y[t] = sum_j gates[t, j] out[inv[t k + j]] (``ops.moe_rows_sum``).
+    Backward (``ops.moe_combine_bwd``): a row's cotangent is its gate times
+    its token's (each row has one token: no scatter-add), a gate's the dot
+    of its row with its token's cotangent."""
+
+    @staticmethod
+    def forward(ctx, out, gates, inv):
+        ctx.save_for_backward(out, gates, inv)
+        return ops.moe_rows_sum(out, inv, gates, gates.shape[-1])
+
+    @staticmethod
+    def backward(ctx, dy):
+        out, gates, inv = ctx.saved_tensors
+        dout, dgates = ops.moe_combine_bwd(out, dy.contiguous(), inv, gates)
+        return dout, dgates, None
 
 
 def apply_moe_capacity(
@@ -198,14 +257,17 @@ def apply_moe_capacity(
                             capacity_factor=capacity_factor)
     if isinstance(x, DTensor):
         return _on_token_shards(run, p, x, top_k)
-    combine, dispatch, aux = router_probs(p, x, top_k)  # (b,s,E) f32
-    return run(p, x, combine, dispatch), aux.float()
+    gates, experts, probs = spans.call("moe.route", _route, p, x, top_k)
+    frac_tokens = torch.mean(_routed(experts, probs.shape[-1]), dim=(0, 1)) / top_k  # (E,)
+    frac_probs = torch.mean(probs, dim=(0, 1))  # (E,)
+    return run(p, x, gates, experts), _aux(frac_tokens, frac_probs, probs.shape[-1]).float()
 
 
-def _capacity(p: dict, x, combine, dispatch, *, act: str, block: int, top_k: int,
+def _capacity(p: dict, x, gates, experts, *, act: str, block: int, top_k: int,
               capacity_factor: float):
     b, s, _ = x.shape
-    E = dispatch.shape[-1]
+    E = p["router"].shape[-1]
+    combine, dispatch = _dense_weights(gates, experts, E)
     if s % block:
         raise ValueError(f"sequence {s} is not a multiple of the block {block} (on a mesh, a "
                          f"rank's shard of the sequence, whose blocks must be the whole one's)")

@@ -299,6 +299,7 @@ def use_plain_stand_ins(monkeypatch, tmp_path):
     import chip_smoke
     from repro_torch import spans
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_gemm as gg
     from repro_torch.kernels import ops, quantize as qz, ref
 
     def counting(kernel, plain):
@@ -328,6 +329,22 @@ def use_plain_stand_ins(monkeypatch, tmp_path):
                         counting("quantize_int8", ref.quantize_int8_ref))
     monkeypatch.setattr(qz, "dequantize_int8_cuda",
                         counting("dequantize_int8", ref.dequantize_int8_ref))
+    def k5(xs, wg, wi, wo, offsets, *, act="silu", num_experts, save=False):
+        spans.count("launch.grouped_gemm", 2)  # chip_smoke.K5_FWD
+        rows, f = xs.shape[0], wg.shape[-1]
+        out = ref.grouped_mlp_ref(*(t.float() for t in (xs, wg, wi, wo)), offsets, act=act)
+        return out.to(xs.dtype), xs.new_zeros((rows, 2 * f) if save else (0,)), xs.new_zeros((rows, f))
+
+    def k5_bwd(dout, xs, gu, h, wg, wi, wo, offsets, *, act="silu", num_experts):
+        spans.count("launch.grouped_gemm", 5)  # chip_smoke.K5_BWD
+        grads = ref.grouped_mlp_bwd_ref(dout.float(), *(t.float() for t in (xs, wg, wi, wo)),
+                                        offsets, act=act)
+        return tuple(g.to(xs.dtype) for g in grads)
+
+    monkeypatch.setattr(gg, "grouped_mlp_cuda", k5)
+    monkeypatch.setattr(gg, "grouped_mlp_bwd_cuda", k5_bwd)
+    monkeypatch.setattr(gg, "moe_rows_sum_cuda", counting("moe_rows", ref.moe_rows_sum_ref))
+    monkeypatch.setattr(gg, "moe_combine_bwd_cuda", counting("moe_rows", ref.moe_combine_bwd_ref))
     monkeypatch.setattr(ops, "_on_card", lambda x: x.device.type == "cpu")
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, **kw: (fn(), 1.0)[1])

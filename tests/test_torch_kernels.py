@@ -10,6 +10,8 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.grouped_gemm import (
+    grouped_mlp_bwd_cuda, grouped_mlp_cuda, moe_combine_bwd_cuda, moe_rows_sum_cuda)
 from repro_torch.kernels.quantize import dequantize_int8_cuda, quantize_int8_cuda
 from test_kernels import SWEEP
 
@@ -99,7 +101,8 @@ def test_ops_on_cpu_take_plain_path_and_count_nothing():
     ops.dequantize_int8(qv, sv)
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bf16": 0,
                                    "flash_attention_bwd": 0, "flash_attention_bwd_bf16": 0,
-                                   "quantize_int8": 0, "dequantize_int8": 0, "decide_dest": 0}
+                                   "quantize_int8": 0, "dequantize_int8": 0, "decide_dest": 0,
+                                   "grouped_gemm": 0, "moe_rows": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -114,7 +117,19 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         quantize_int8_cuda(torch.zeros(256))
     with pytest.raises(ValueError):
         dequantize_int8_cuda(torch.zeros(256, dtype=torch.int8), torch.ones(1))
+    rows, w, offsets = torch.zeros(8, 16), torch.zeros(2, 16, 8), torch.tensor([0, 4, 8])
+    with pytest.raises(ValueError):
+        grouped_mlp_cuda(rows, w, w, w.transpose(1, 2).contiguous(), offsets, num_experts=2)
+    with pytest.raises(ValueError):
+        grouped_mlp_bwd_cuda(rows, rows, torch.zeros(8, 16), torch.zeros(8, 8), w, w,
+                             w.transpose(1, 2).contiguous(), offsets, num_experts=2)
+    inv, gates = torch.arange(8), torch.full((4, 2), 0.5)
+    with pytest.raises(ValueError):
+        moe_rows_sum_cuda(rows, inv, gates, 2)
+    with pytest.raises(ValueError):
+        moe_combine_bwd_cuda(rows, torch.zeros(4, 16), inv, gates)
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bf16": 0,
                                    "flash_attention_bwd": 0, "flash_attention_bwd_bf16": 0,
-                                   "quantize_int8": 0, "dequantize_int8": 0, "decide_dest": 0}
+                                   "quantize_int8": 0, "dequantize_int8": 0, "decide_dest": 0,
+                                   "grouped_gemm": 0, "moe_rows": 0}
 

@@ -14,8 +14,8 @@ is where an aux loss counted on both ranks would show) of
 ``value_and_grad``; decode step by step from an empty cache placed by its
 pspecs (1e-5 a step).  On (1, 2) a recorder of the functional collectives'
 inputs finds none of an expert weight's local block, through the forward,
-the gradients and decode, and one MoE layer run alone makes its (2, b, s,
-d) block of dispatch buffers and never all experts' (4, b, s, d).  Under
+the gradients and decode, and one MoE layer run alone makes its (b s k,
+d) buffer of routed rows and no dense (2 or 4, b, s, d) dispatch.  Under
 the ``moe-blocked`` rules with ``REPRO_MOE_IMPL=capacity`` granite's
 forward, loss and gradients at 512 tokens (one 256-token block a rank on
 (1, 2)) equal the reference's capacity dispatch; at 48 tokens (24 a rank
@@ -397,9 +397,10 @@ def test_moe_layer_matches_reference(world, arch, shape):
 def test_no_rank_gathers_or_runs_all_experts(world, arch):
     """On (1, 2): no collective of the forward, the gradients or decode
     takes an expert weight's local block (2 of 4 experts) as its input, so
-    no rank gathers another's experts; one MoE layer makes its block's
-    (2, b, s, d) dispatch buffers, the sequence whole, and never all
-    experts' (4, b, s, d), nor the whole (4, d, f) weights."""
+    no rank gathers another's experts; one MoE layer makes its (b s k, d)
+    buffer of routed rows, the sequence whole, and no dense dispatch
+    buffer, its block's (2, b, s, d) or all experts' (4, b, s, d), nor the
+    whole (4, d, f) weights."""
     from repro_torch.configs import get_config
 
     cfg = get_config(arch).reduced()
@@ -412,8 +413,8 @@ def test_no_rank_gathers_or_runs_all_experts(world, arch):
     for op, shp in seen:
         assert tuple(shp[-3:]) not in blocks, (op, shp)
     outputs = {tuple(s) for s in meta[f"{key}/layer_outputs"]}
-    assert (E // 2, B, S, d) in outputs
-    assert (E, B, S, d) not in outputs
+    assert (B * S * cfg.top_k, d) in outputs
+    assert (E // 2, B, S, d) not in outputs and (E, B, S, d) not in outputs
     assert not outputs & {(E, d, f), (E, f, d)}
 
 

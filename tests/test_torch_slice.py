@@ -56,7 +56,8 @@ def test_serving_slice_matches_reference(tmp_path):
                                max_new=NEW, device="cpu")
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bf16": 0,
                                    "flash_attention_bwd": 0, "flash_attention_bwd_bf16": 0,
-                                   "quantize_int8": 0, "dequantize_int8": 0, "decide_dest": 0}
+                                   "quantize_int8": 0, "dequantize_int8": 0, "decide_dest": 0,
+                                   "grouped_gemm": 0, "moe_rows": 0}
 
     np.testing.assert_allclose(res.logits_a.numpy(), np.asarray(jlogits_a), atol=TOL, rtol=TOL)
     np.testing.assert_array_equal(res.tokens_a.numpy(), np.asarray(jtokens_a))
@@ -94,7 +95,8 @@ def test_bf16_prefill_matches_reference():
                                             device="cpu")
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bf16": 0,
                                    "flash_attention_bwd": 0, "flash_attention_bwd_bf16": 0,
-                                   "quantize_int8": 0, "dequantize_int8": 0, "decide_dest": 0}
+                                   "quantize_int8": 0, "dequantize_int8": 0, "decide_dest": 0,
+                                   "grouped_gemm": 0, "moe_rows": 0}
     assert logits.dtype == torch.bfloat16
     want = np.asarray(jlogits.astype(jnp.float32))
     np.testing.assert_allclose(logits.float().numpy(), want, atol=chip_smoke.MODEL_BF16_TOL,

@@ -212,8 +212,9 @@ def test_no_mark_in_the_graph_without_a_profiler(kind):
 
 @pytest.mark.parametrize("impl", ["dense", "capacity"])
 def test_moe_row_counters(impl):
-    """rows routed over rows computed: top_k / E on the dense dispatch,
-    b s top_k over b nb E C on the capacity one."""
+    """rows routed over rows computed: 1 on the dense dispatch, computed
+    dropless on the b s top_k routed rows; b s top_k over b nb E C on the
+    capacity one."""
     E, k, d, s = 4, 2, 8, 32
     p = moe_lib.init_moe(torch.Generator().manual_seed(0), d, 16, E, 2, torch.float32, "cpu")
     x = torch.randn(B, s, d)
@@ -221,8 +222,8 @@ def test_moe_row_counters(impl):
     moe_lib.apply_moe(p, x, top_k=k, act="silu", impl=impl)
     got = spans.counts()
     if impl == "dense":
-        assert got["moe.rows_computed"] == E * B * s and got["moe.rows_routed"] == B * s * k
-        assert got["moe.rows_routed"] / got["moe.rows_computed"] == k / E
+        assert got["moe.rows_computed"] == B * s * k and got["moe.rows_routed"] == B * s * k
+        assert got["moe.rows_routed"] / got["moe.rows_computed"] == 1
     else:
         cap = int(max(1, min(s, round(s * k / E * 1.5))))  # one block of min(256, s)
         assert got["moe.rows_computed"] == B * 1 * E * cap and got["moe.rows_routed"] == B * s * k
@@ -235,7 +236,8 @@ def test_launch_counts_keep_their_keys():
     spans.count("moe.rows_routed", 3)
     assert ops.launch_counts() == {name: 0 for name in (
         "flash_attention", "flash_attention_bf16", "flash_attention_bwd",
-        "flash_attention_bwd_bf16", "quantize_int8", "dequantize_int8", "decide_dest")}
+        "flash_attention_bwd_bf16", "quantize_int8", "dequantize_int8", "decide_dest",
+        "grouped_gemm", "moe_rows")}
     spans.count("launch.quantize_int8")
     spans.count("launch.flash_attention_bwd_bf16", 2)
     got = ops.launch_counts()

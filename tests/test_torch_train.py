@@ -394,7 +394,8 @@ def test_chip_smoke_lifecycle_on_cpu(reduced, tmp_path):
     assert res.launches["site A"][1] == {
         "flash_attention": 2 * layers * 12, "flash_attention_bf16": 0,
         "flash_attention_bwd": layers * 12, "flash_attention_bwd_bf16": 0, "quantize_int8": 0,
-        "dequantize_int8": 0, "decide_dest": 0}
+        "dequantize_int8": 0, "decide_dest": 0, "grouped_gemm": 0,
+        "moe_rows": 0}
     res.launches = {k: (want, want) for k, (_, want) in res.launches.items()}
     chip_smoke.check_train_lifecycle(res)
     # int8 state saves and restores: one K2 / K3 per float leaf of params,
@@ -408,7 +409,8 @@ def test_chip_smoke_lifecycle_on_cpu(reduced, tmp_path):
         "flash_attention": 2 * layers * 4, "flash_attention_bf16": 0,
         "flash_attention_bwd": layers * 4, "flash_attention_bwd_bf16": 0,
         "quantize_int8": 8 * 4 + 44 * 2,
-        "dequantize_int8": 8 * 4 + 44, "decide_dest": 0}
+        "dequantize_int8": 8 * 4 + 44, "decide_dest": 0, "grouped_gemm": 0,
+        "moe_rows": 0}
     assert chip_smoke.saves_in(0, 12, 4) == 4 and chip_smoke.saves_in(12, 24, 4) == 4
 
 
